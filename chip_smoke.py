@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (multioptpy_tpu_torch) on one CUDA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. kernel_check: build the Jacobi kernel from csrc/ with nvcc, hold it
+     against its plain PyTorch version at every main-path shape (plus odd D
+     and a near-degenerate batch, in f32 and f64), and time the kernel, the
+     plain version and torch.linalg.eigh (the yardstick; the port never
+     calls it below the kernel's size gate); then seeded_eigh, whose f32
+     seed is the kernel, against torch.linalg.eigvalsh.
+  2. slice_a: 256 perturbed S8 rings relaxed together on SQM in f32 with
+     rfo_fsb, an exact initial Hessian and eigh_impl="pallas", 150 steps
+     (the throughput configuration of examples/04_scale_demo.py).
+  3. slice_b: the 18-atom Diels-Alder reactant on SQM2 in f64 with rfo_fsb,
+     an exact initial Hessian and eigh_impl="pallas" on the stepper and the
+     calculator, up to 60 steps; its first 3 steps also run on the CPU and
+     must agree to 1e-8 Ha.
+Then the kernels line, the card's name and power limit, and last the fixed
+{"ok": true, "device": ...} line. Any failed check raises: exit code != 0.
+Without a CUDA card the script raises before printing any result.
+"""
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, and dense
+# f32 (outside the tensor cores) / f64 (tensor-core peak) operations/s
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 67e12}
+SQM_LOOSE = dict(max_force=3e-3, rms_force=2e-3, max_displacement=1e-2,
+                 rms_displacement=7e-3)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def card_line():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps=None):
+    """Mean ms per call of fn() on the card, by CUDA events, after a warm
+    call; `reps` adapts to about 0.2 s of work when not given."""
+    fn()
+    torch.cuda.synchronize()
+    if reps is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        reps = int(min(50, max(3, 0.2 / max(time.perf_counter() - t0, 1e-6))))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(b, d0, sweeps, dtype):
+    """Least time for one call: the larger of the bytes it must move (input
+    read once, w and V written once) over HBM bandwidth and its operations
+    (9 D^3 per sweep per matrix: 6 D^3 on A, 3 D^3 on V) over peak."""
+    itemsize = torch.finfo(dtype).bits // 8
+    d = d0 + d0 % 2
+    t_bytes = b * (2 * d0 * d0 + d0) * itemsize / PEAK_BYTES * 1e3
+    t_ops = 9.0 * d ** 3 * sweeps * b / PEAK_OPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def random_sym(gen, b, d, dtype, degenerate=False):
+    m = torch.randn(b, d, d, generator=gen, dtype=torch.float64)
+    if not degenerate:
+        return (0.5 * (m + m.mT)).to(dtype).cuda()
+    q, _ = torch.linalg.qr(m)
+    w = torch.repeat_interleave(torch.arange(1, d // 4 + 2,
+                                             dtype=torch.float64), 4)[:d]
+    w = w + 1e-7 * (torch.arange(d, dtype=torch.float64) % 2)
+    return ((q * w[None, None, :]) @ q.mT).to(dtype).cuda()
+
+
+def phase_kernel_check(jc, card):
+    from multioptpy_tpu_torch.steppers.rfo import jacobi_sweeps_for
+
+    t0 = time.perf_counter()
+    lib_path, log = jc.build()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "build", "library": str(lib_path.relative_to(REPO)),
+          "seconds": build_s,
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+    gen = torch.Generator().manual_seed(0)
+    cases = [  # (batch, D, dtype, where on the main path)
+        (256, 24, torch.float32, "S8 RFO step"),
+        (256, 32, torch.float32, "S8 SQM band per gradient"),
+        (256 * 48, 32, torch.float32, "S8 band inside the exact Hessian"),
+        (1, 54, torch.float64, "Diels-Alder RFO step"),
+        (1, 72, torch.float64, "Diels-Alder SQM2 band per gradient"),
+        (108, 72, torch.float64, "Diels-Alder band inside the exact Hessian"),
+    ]
+    extra = [(20, 9, dt, "odd D") for dt in (torch.float32, torch.float64)]
+    extra += [(4, 27, dt, "odd D") for dt in (torch.float32, torch.float64)]
+    extra += [(16, 24, dt, "near-degenerate")
+              for dt in (torch.float32, torch.float64)]
+    rows, worst = [], 0.0
+    for b, d, dtype, where in cases + extra:
+        # clustered spectra converge slowly: the near-degenerate batch gets
+        # 12 sweeps; every other shape the main path's (`_eigh`: one more
+        # than its CPU count)
+        sw = 12 if where == "near-degenerate" else jacobi_sweeps_for(d) + 1
+        a = random_sym(gen, b, d, dtype, degenerate=(where == "near-degenerate"))
+        w, v = jc.jacobi_eigh_cuda(a, sw)
+        w_p, _ = jc.jacobi_eigh_plain(a, sw)
+        torch.cuda.synchronize()
+        scale = max(1.0, a.abs().max().item())
+        tol_w, tol_r = ((2e-5, 3e-5) if dtype == torch.float32
+                        else (1e-11, 1e-11))
+        err_w = (w - w_p).abs().max().item()
+        rec = torch.einsum("bij,bj,bkj->bik", v, w, v)
+        err_r = (rec - a).abs().max().item()
+        eye = torch.eye(d, dtype=dtype, device="cuda")
+        err_o = (v.mT @ v - eye).abs().max().item()
+        ok = (err_w <= tol_w * scale and err_r <= tol_r * scale
+              and err_o <= tol_r * d)
+        row = {"batch": b, "d": d, "dtype": str(dtype).split(".")[-1],
+               "sweeps": sw, "where": where, "eig_err_vs_plain": err_w,
+               "reconstruction_err": err_r, "orthonormality_err": err_o,
+               "scale": scale, "ok": ok}
+        if (b, d, dtype, where) in cases:
+            row["ms"] = cuda_ms(lambda: jc.jacobi_eigh_cuda(a, sw))
+            row["plain_ms"] = cuda_ms(lambda: jc.jacobi_eigh_plain(a, sw),
+                                      reps=3)
+            row["library_ms"] = cuda_ms(lambda: torch.linalg.eigh(a))
+            row["bound_ms"], row["bound_by"] = bound_ms(b, d, sw, dtype)
+        emit({"phase": "kernel_check", **row, "card": card})
+        if not ok:
+            raise AssertionError(f"kernel disagrees with its plain version: "
+                                 f"{row}")
+        worst = max(worst, err_w)
+        rows.append(row)
+
+    # seeded_eigh (ops/eigh64): f32 seed through the kernel, f64 polish
+    from multioptpy_tpu_torch.ops.eigh64 import seeded_eigh
+    a = random_sym(gen, 108, 72, torch.float64)
+    before = jc.jacobi_eigh_cuda.launches
+    w, v = seeded_eigh(a)
+    w_lib = torch.linalg.eigvalsh(a)
+    torch.cuda.synchronize()
+    scale = max(1.0, a.abs().max().item())
+    err_w = (w - w_lib).abs().max().item()
+    err_r = (torch.einsum("bij,bj,bkj->bik", v, w, v) - a).abs().max().item()
+    seeded = {"phase": "seeded_eigh", "batch": 108, "d": 72,
+              "eig_err_vs_library": err_w, "reconstruction_err": err_r,
+              "kernel_launches": jc.jacobi_eigh_cuda.launches - before,
+              "card": card}
+    emit(seeded)
+    # two f64 polish sweeps from an 8-sweep f32 Jacobi seed (the reference's
+    # TPU route) leave ~1e-9 on random 72x72 matrices with close pairs
+    if not (err_w <= 1e-8 * scale and err_r <= 1e-8 * scale
+            and seeded["kernel_launches"] == 1):
+        raise AssertionError(f"seeded_eigh failed on the card: {seeded}")
+    return rows, worst
+
+
+def s8_ring(radius=4.3, pucker=0.9):
+    """S8 crown: alternating-z octagon, Bohr (examples/04_scale_demo.py)."""
+    k = np.arange(8)
+    ang = 2 * np.pi * k / 8
+    return np.stack([radius * np.cos(ang), radius * np.sin(ang),
+                     pucker * (-1.0) ** k], axis=-1)
+
+
+def phase_slice_a(jc, card):
+    from multioptpy_tpu_torch.calculators.sqm import SQM
+    from multioptpy_tpu_torch.drivers.optimize import (OptimizeConfig,
+                                                       optimize_batch)
+
+    batch_n, n_steps = 256, 150
+    rng = np.random.default_rng(11)
+    batch = torch.as_tensor(s8_ring()[None] + 0.12 * rng.standard_normal(
+        (batch_n, 8, 3)), dtype=torch.float32, device="cuda")
+    z = np.full(8, 16)
+    calc = SQM(eigh_impl="pallas", device="cuda")
+    cfg = OptimizeConfig(method="rfo_fsb", init_hessian="exact",
+                         eigh_impl="pallas", **SQM_LOOSE)
+    e0 = calc.energy(batch, z)
+    t0 = time.perf_counter()
+    optimize_batch(calc, batch, z, config=cfg, n_steps=n_steps,
+                   device="cuda")
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+
+    jc.jacobi_eigh_cuda.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = optimize_batch(calc, batch, z, config=cfg, n_steps=n_steps,
+                         device="cuda")
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = jc.jacobi_eigh_cuda.launches
+
+    e_hist = res.energy_history
+    g = res.gradient.reshape(batch_n, -1)
+    out = {
+        "phase": "slice_a", "config": "256xS8 SQM f32 rfo_fsb exact pallas",
+        "n_steps": n_steps, "n_converged": int(res.converged.sum()),
+        "median_maxg_final": float(g.abs().amax(-1).median()),
+        "median_e_initial": float(e0.median()),
+        "median_e_final": float(np.median(e_hist[-1])),
+        "ms_per_structure_step_warm": warm_s / (batch_n * n_steps) * 1e3,
+        "run_s_warm": warm_s, "run_s_first": cold_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "kernel_launches": launches, "card": card}
+    emit(out)
+    if launches <= 0:
+        raise AssertionError("slice A never launched the Jacobi kernel")
+    finite = (np.isfinite(e_hist).all() and bool(torch.isfinite(
+        res.coords).all()) and bool(torch.isfinite(res.gradient).all()))
+    if not finite:
+        raise AssertionError("slice A produced non-finite values")
+    if not out["median_e_final"] < out["median_e_initial"]:
+        raise AssertionError("slice A: the median energy did not fall")
+    return launches
+
+
+def phase_slice_b(jc, card):
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+
+    coords, z = diels_alder_reactant()
+    cfg = dict(method="rfo_fsb", init_hessian="exact", eigh_impl="pallas")
+    gpu_calc = SQM2(eigh_impl="pallas", device="cuda")
+
+    jc.jacobi_eigh_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = optimize(gpu_calc, coords, z,
+                   config=OptimizeConfig(nsteps=60, **cfg), device="cuda")
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    launches = jc.jacobi_eigh_cuda.launches
+
+    torch.set_num_threads(8)
+    t0 = time.perf_counter()
+    # the CPU run takes the kernel's algorithm at the card's sweep counts
+    # (its plain version): the reference's CPU Jacobi is one sweep short of
+    # convergence on this RFO Hessian (steppers/rfo._eigh)
+    cfg["eigh_impl"] = "kernel"
+    cpu = optimize(SQM2(eigh_impl="kernel", device="cpu"), coords, z,
+                   config=OptimizeConfig(nsteps=3, **cfg), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    n_cmp = len(cpu.energy_history)
+    diff = np.abs(res.energy_history[:n_cmp] - cpu.energy_history).max()
+    out = {
+        "phase": "slice_b", "config": "Diels-Alder SQM2 f64 rfo_fsb exact "
+                                      "pallas",
+        "n_iterations": res.n_iterations, "converged": bool(res.converged),
+        "energies": res.energy_history.tolist(),
+        "max_grad_final": float(res.gradient.abs().max()),
+        "ms_per_step": gpu_s / max(res.n_iterations, 1) * 1e3,
+        "run_s": gpu_s, "cpu_3_steps_s": cpu_s,
+        "cpu_energies": cpu.energy_history.tolist(),
+        "max_abs_e_diff_cpu_vs_card": float(diff),
+        "kernel_launches": launches, "card": card}
+    emit(out)
+    if launches <= 0:
+        raise AssertionError("slice B never launched the Jacobi kernel")
+    if not diff <= 1e-8:
+        raise AssertionError(f"slice B: card and CPU energies differ by "
+                             f"{diff:.3e} Ha (> 1e-8)")
+    if not (np.isfinite(res.energy_history).all()
+            and res.energy_history[-1] < res.energy_history[0]):
+        raise AssertionError("slice B: the energy did not fall")
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    sys.path.insert(0, str(REPO))
+    from multioptpy_tpu_torch.device import resolve_device
+    from multioptpy_tpu_torch.ops import jacobi_cuda as jc
+
+    resolve_device("cuda")
+    card = card_line()
+    emit({"phase": "start", "card": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    t_start = time.perf_counter()
+    rows, worst = phase_kernel_check(jc, card)
+    launches_a = phase_slice_a(jc, card)
+    launches_b = phase_slice_b(jc, card)
+
+    timed = [r for r in rows if "ms" in r]
+    sum_of = lambda k: sum(r[k] for r in timed)  # noqa: E731
+    bound = sum_of("bound_ms")
+    emit({"kernels": [{
+        "name": "jacobi_eigh",
+        "route": "cuda",
+        "source": "multioptpy_tpu_torch/csrc/jacobi_eigh.cu",
+        "replaces": "multioptpy_tpu/ops/jacobi_pallas.py:39",
+        "launches": launches_a + launches_b,
+        "max_abs_err": worst,
+        "ms": sum_of("ms"),
+        "plain_ms": sum_of("plain_ms"),
+        "bound_ms": bound,
+        "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                         for r in timed) else "bytes"),
+        "library_ms": sum_of("library_ms"),
+        "shapes": [f"{r['batch']}x{r['d']}x{r['d']} {r['dtype']} "
+                   f"sweeps={r['sweeps']}" for r in timed],
+        "note": "ms, plain_ms, bound_ms, library_ms: one call at each shape, "
+                "summed"}]})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

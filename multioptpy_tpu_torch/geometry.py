@@ -1,0 +1,88 @@
+"""Geometry utilities on batched coordinates: masses and TR/rot projection.
+
+Counterpart of `multioptpy_tpu/geometry.py`. Coordinates carry an explicit
+leading batch axis, (B, N, 3) in Bohr, in place of the reference's `vmap`.
+"""
+
+import numpy as np
+import torch
+
+from multioptpy_tpu_torch.periodic import MASS_AMU
+
+
+def masses_from_z(z):
+    """Atomic numbers -> amu masses (float64), as a tensor beside `z`."""
+    if isinstance(z, torch.Tensor):
+        return torch.as_tensor(MASS_AMU, device=z.device)[z.long()]
+    return torch.as_tensor(MASS_AMU[np.asarray(z)])
+
+
+def center_of_mass(coords, masses):
+    """(B,N,3), (N,) -> (B,3)."""
+    m = masses.to(coords.dtype)
+    return (coords * m[:, None]).sum(-2) / m.sum()
+
+
+def _orthonormalize_masked(vectors):
+    """Modified Gram-Schmidt over the rows of (B, k, D) with rank masking:
+    linearly dependent rows become zero rows, so P = I - sum v v^T is
+    unchanged (the reference's branchless `norm > 1e-10` drop)."""
+    vecs = vectors.clone()
+    k = vecs.shape[-2]
+    for i in range(k):
+        v = vecs[:, i]
+        prev = (torch.arange(k, device=vecs.device) < i).to(v.dtype)
+        coeffs = torch.einsum("bkd,bd->bk", vecs, v) * prev
+        v = v - torch.einsum("bk,bkd->bd", coeffs, vecs)
+        norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        ok = norm > 1e-10
+        vecs[:, i] = torch.where(ok, v / torch.where(ok, norm, 1.0), 0.0)
+    return vecs
+
+
+def tr_rot_basis(coords, masses=None):
+    """Orthonormal translation+rotation basis, shape (B, 6, 3N); zero rows
+    stand in for dependent directions (linear molecules)."""
+    b, n, _ = coords.shape
+    dtype = coords.dtype
+    if masses is None:
+        w = torch.ones(n, dtype=dtype, device=coords.device)
+        centered = coords - coords.mean(-2, keepdim=True)
+    else:
+        w = torch.sqrt(masses.to(dtype))
+        centered = coords - center_of_mass(coords, masses)[:, None, :]
+    eye3 = torch.eye(3, dtype=dtype, device=coords.device)
+    trans = (eye3[:, None, :] * w[None, :, None]).expand(b, 3, n, 3)
+    x, y, z = centered[..., 0], centered[..., 1], centered[..., 2]
+    zero = torch.zeros_like(x)
+    rots = torch.stack([
+        torch.stack([zero, -z, y], dim=-1),
+        torch.stack([z, zero, -x], dim=-1),
+        torch.stack([-y, x, zero], dim=-1),
+    ], dim=1) * w[None, None, :, None]
+    basis = torch.cat([trans, rots], dim=1).reshape(b, 6, 3 * n)
+    return _orthonormalize_masked(basis)
+
+
+def tr_rot_projector(coords, masses=None):
+    """P = I - sum_k v_k v_k^T over the TR/rot basis, shape (B, 3N, 3N)."""
+    basis = tr_rot_basis(coords, masses)
+    n3 = basis.shape[-1]
+    eye = torch.eye(n3, dtype=coords.dtype, device=coords.device)
+    return eye - basis.mT @ basis
+
+
+def project_gradient_tr_rot(gradient, coords):
+    """Remove net translation/rotation components from (B,N,3) gradients."""
+    basis = tr_rot_basis(coords)
+    g = gradient.reshape(gradient.shape[0], -1)
+    g = g - torch.einsum("bkd,bk->bd", basis,
+                         torch.einsum("bkd,bd->bk", basis, g))
+    return g.reshape(gradient.shape)
+
+
+def project_hessian_tr_rot(hessian, coords, masses=None):
+    """Project TR/rot modes out of (B,3N,3N) Hessians; symmetrized."""
+    p = tr_rot_projector(coords, masses)
+    h = p.mT @ hessian @ p
+    return 0.5 * (h + h.mT)
