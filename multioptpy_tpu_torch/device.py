@@ -1,4 +1,7 @@
-"""Device selection shared by every entry point of the port."""
+"""Device selection shared by every entry point of the port, and the card
+timer its scripts share."""
+
+import time
 
 import torch
 
@@ -22,3 +25,22 @@ def resolve_device(device=None):
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def cuda_ms(fn, reps=None):
+    """Mean ms per call of fn() on the card, by CUDA events, after a warm
+    call; `reps` adapts to about 0.2 s of work when not given."""
+    fn()
+    torch.cuda.synchronize()
+    if reps is None:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        reps = int(min(50, max(3, 0.2 / max(time.perf_counter() - t0, 1e-6))))
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -17,8 +17,9 @@ torch.cuda.synchronize():
   * the Jacobi kernel alone at the step's two shapes;
 then runs torch.profiler over a few full steps and reports the device
 time per step, the kernel launches per step, the device's idle share
-(1 - device time / unprofiled step time) and the top kernels by device
-time. Prints one JSON line per slice and the card's name and power limit.
+(1 - device time / unprofiled step time), the Jacobi kernel's device time
+and launches per step, and the top kernels by device time. Prints one
+JSON line per slice and the card's name and power limit.
 """
 
 import json
@@ -68,9 +69,12 @@ def profile_steps(step, state, n):
             kernels.append((dev_us, ev.count, ev.key))
     kernels.sort(reverse=True)
     total_us = sum(k[0] for k in kernels)
+    jacobi = [k for k in kernels if "jacobi_" in k[2]]
     return {
         "device_ms_per_step": total_us / n / 1e3,
         "launches_per_step": sum(k[1] for k in kernels) / n,
+        "jacobi_ms_per_step": sum(k[0] for k in jacobi) / n / 1e3,
+        "jacobi_launches_per_step": sum(k[1] for k in jacobi) / n,
         "top_kernels": [{"name": name[:80], "count_per_step": cnt / n,
                          "ms_per_step": us / n / 1e3,
                          "share": us / total_us if total_us else None}
