@@ -21,6 +21,24 @@ Phases, each printing one JSON line:
      an exact initial Hessian and eigh_impl="pallas" on the stepper and the
      calculator, up to 60 steps; its first 3 steps also run on the CPU and
      must agree to 1e-8 Ha.
+  4. autots: the reduced flagship AutoTS (tests/test_tpu_flagship_smoke.py:
+     two AFIRs, 150 AFIR steps, an 8-image CI-NEB of 80 iterations, one
+     saddle candidate with exact Hessians every 5 steps, a 30-step LQA IRC,
+     endpoint optimizations) on the Diels-Alder reactant, SQM2 f64,
+     eigh_impl="pallas" everywhere, the default scan_chunk. It must launch
+     the block variant in the NEB and in the IRC, give finite barriers
+     and a positive forward one, and agree with a CPU run of the kernel's
+     algorithm to 1e-8 Ha over the AFIR stage's first 3 energies and the
+     band energies of the first 2 NEB iterations. Its band has no interior
+     maximum (as in the JAX package's own CPU run), so it must find no
+     imaginary mode, the reference's own count; and the whole pipeline,
+     run again on the CPU through torch.linalg.eigh, must give the same
+     count, the TS energy within 1e-6 Ha and the barriers within 1e-5 Ha.
+  5. full_flagship: the configuration of tests/test_flagship_autots.py
+     (300 AFIR steps, 16 images, 250 NEB iterations with a linear
+     redistribution every 25, two candidates, a 70-step IRC). It must find
+     one imaginary mode and a finite positive forward barrier, and launch
+     the block variant in the NEB and in the IRC.
 Slice A must launch the warp variant and slice B the block variant. Then
 the kernels line (one entry per variant), the card's name and power
 limit, and last the fixed
@@ -84,7 +102,8 @@ def random_sym(gen, b, d, dtype, degenerate=False):
 
 def phase_kernel_check(jc, card):
     from multioptpy_tpu_torch.device import cuda_ms
-    from multioptpy_tpu_torch.steppers.rfo import jacobi_sweeps_for
+    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
+                                                   rfo_extra_sweeps)
 
     t0 = time.perf_counter()
     lib_path, log = jc.build()
@@ -101,6 +120,10 @@ def phase_kernel_check(jc, card):
         (1, 54, torch.float64, "Diels-Alder RFO step"),
         (1, 72, torch.float64, "Diels-Alder SQM2 band per gradient"),
         (108, 72, torch.float64, "Diels-Alder band inside the exact Hessian"),
+        (8, 72, torch.float64, "Diels-Alder NEB band of 8 images"),
+        (16, 72, torch.float64, "Diels-Alder NEB band of 16 images"),
+        (2, 72, torch.float64, "Diels-Alder IRC branch-pair band"),
+        (216, 72, torch.float64, "Diels-Alder IRC branch-pair Hessian"),
     ]
     extra = [(20, 9, dt, "odd D") for dt in (torch.float32, torch.float64)]
     extra += [(4, 27, dt, "odd D") for dt in (torch.float32, torch.float64)]
@@ -119,9 +142,10 @@ def phase_kernel_check(jc, card):
         # clustered spectra converge slowly: the near-degenerate batch and
         # the boundary rows (B = 12289 random matrices hold close pairs)
         # get 12 sweeps; every main-path shape the main path's (`_eigh`:
-        # one more than its CPU count)
+        # one more than its CPU count, an RS-RFO step more in f64)
         sw = (12 if where in ("near-degenerate", "variant boundary")
-              else jacobi_sweeps_for(d) + 1)
+              else jacobi_sweeps_for(d) + (rfo_extra_sweeps(dtype)
+                                           if "RFO" in where else 1))
         a = random_sym(gen, b, d, dtype, degenerate=(where == "near-degenerate"))
         w, v = jc.jacobi_eigh_cuda(a, sw)
         w_p, v_p = jc.jacobi_eigh_plain(a, sw)
@@ -305,6 +329,167 @@ def phase_slice_b(jc, card):
     return launches
 
 
+def phase_autots(jc, card, full=False):
+    """The flagship AutoTS on the card, K1 launches counted per stage."""
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.device import cuda_ms
+    from multioptpy_tpu_torch.flagship import flagship_config
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu_torch.workflows.autots import autots
+
+    coords, z = diels_alder_reactant()
+    cfg = flagship_config(full)
+    calc = SQM2(eigh_impl="pallas", device="cuda")
+    seen, per_stage, detail = {}, {}, {}
+    seen_shapes, stage_shapes, stage_s = {}, {}, {}
+    clock = [0.0]
+
+    def hook(name, **info):
+        torch.cuda.synchronize()
+        now_s = time.perf_counter()
+        stage_s[name] = now_s - clock[0]
+        clock[0] = now_s
+        now = dict(jc.jacobi_eigh_cuda.variant_launches)
+        per_stage[name] = {v: now[v] - seen.get(v, 0) for v in now}
+        seen.update(now)
+        shapes = dict(jc.jacobi_eigh_cuda.shape_launches)
+        stage_shapes[name] = {k: n - seen_shapes.get(k, 0)
+                              for k, n in shapes.items()
+                              if n > seen_shapes.get(k, 0)}
+        seen_shapes.update(shapes)
+        detail.update(info)
+
+    jc.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = clock[0] = time.perf_counter()
+    res = autots(calc, coords, z, cfg, device="cuda", stage_hook=hook)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(jc.jacobi_eigh_cuda.variant_launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    # K1's device time per stage, estimated as its launches at each shape
+    # times that shape's kernel time, timed here on random matrices
+    gen = torch.Generator().manual_seed(1)
+    shape_ms = {}
+    for b, d, tag, sweeps in sorted(set(seen_shapes)):
+        a = random_sym(gen, b, d, {"f32": torch.float32,
+                                   "f64": torch.float64}[tag])
+        shape_ms[(b, d, tag, sweeps)] = cuda_ms(
+            lambda: jc.jacobi_eigh_cuda(a, sweeps))
+    k1_s = {name: sum(n * shape_ms[k] for k, n in shapes.items()) / 1e3
+            for name, shapes in stage_shapes.items()}
+    neb_res, irc_res = detail["neb"], res.irc_result
+    out = {
+        "phase": "full_flagship" if full else "autots",
+        "config": ("tests/test_flagship_autots.py" if full else
+                   "tests/test_tpu_flagship_smoke.py") + " on SQM2 f64, "
+                  "eigh_impl=pallas, scan_chunk 16",
+        "run_s": run_s, "stage_seconds": res.stage_seconds,
+        "stage_s": stage_s, "k1_s_est": k1_s,
+        "k1_share_est": {k: k1_s[k] / stage_s[k] for k in stage_s},
+        "k1_shape_ms": {f"{b}x{d}x{d} {tag} sweeps={sw}": ms
+                        for (b, d, tag, sw), ms in shape_ms.items()},
+        "k1_launches_by_shape": {
+            f"{b}x{d}x{d} {tag} sweeps={sw}": n
+            for (b, d, tag, sw), n in sorted(seen_shapes.items())},
+        "ts_energy": res.ts_energy, "barrier_forward": res.barrier_forward,
+        "barrier_backward": res.barrier_backward,
+        "n_imaginary": res.n_imaginary,
+        "afir_steps": int(detail["afir"].n_iterations),
+        "neb_n_iterations": neb_res.n_iterations,
+        "neb_converged": bool(neb_res.converged),
+        "irc_branch_lengths": [len(irc_res.forward_path),
+                               len(irc_res.backward_path)],
+        "candidates": [{k: c[k] for k in ("index", "energy", "n_imaginary",
+                                          "converged")}
+                       for c in res.candidates],
+        "kernel_launches_by_stage": per_stage, "kernel_launches": launches,
+        "peak_mem_gib": peak_gib, "card": card}
+    if not full:
+        out.update(reduced_on_cpu(res, detail, coords, z))
+    emit(out)
+    for stage in ("step2_neb", "step4_irc"):
+        if per_stage[stage]["block"] <= 0:
+            raise AssertionError(f"{out['phase']}: no block-variant launch "
+                                 f"in {stage}")
+    # the reference's own count: one imaginary mode in the full
+    # configuration, none in the reduced one (its band has no interior
+    # maximum; tests/test_torch_flagship_reduced.py)
+    if not (res.n_imaginary == int(full) and np.isfinite(res.barrier_forward)
+            and np.isfinite(res.barrier_backward)
+            and res.barrier_forward > 0):
+        raise AssertionError(f"{out['phase']}: n_imaginary "
+                             f"{res.n_imaginary}, barriers "
+                             f"{res.barrier_forward}, {res.barrier_backward}")
+    if not full:
+        for key, tol in (("afir", 1e-8), ("neb", 1e-8), ("ts", 1e-6),
+                         ("barriers", 1e-5)):
+            diff = out[f"max_abs_e_diff_cpu_vs_card_{key}"]
+            if not diff <= tol:
+                raise AssertionError(f"autots: card and CPU {key} energies "
+                                     f"differ by {diff:.3e} Ha (> {tol})")
+        if out["cpu_n_imaginary"] != res.n_imaginary:
+            raise AssertionError(f"autots: {out['cpu_n_imaginary']} "
+                                 f"imaginary modes on the CPU, "
+                                 f"{res.n_imaginary} on the card")
+    return launches
+
+
+def reduced_on_cpu(res, detail, coords, z):
+    """The reduced flagship's card run `res` against the port on the CPU:
+    the AFIR stage's first 3 energies and the first 2 NEB band
+    evaluations from the card's initial path through the kernel's
+    algorithm (its plain version, at the card's sweep counts), and the
+    whole pipeline through torch.linalg.eigh (the plain version would take
+    minutes of the host's CPU at the IRC's 216-matrix batches): TS energy,
+    barriers and imaginary modes."""
+    import dataclasses
+
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.drivers.neb import neb
+    from multioptpy_tpu_torch.drivers.optimize import optimize
+    from multioptpy_tpu_torch.flagship import flagship_config
+    from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
+    from multioptpy_tpu_torch.workflows.autots import autots
+
+    torch.set_num_threads(8)
+    cfg = flagship_config(eigh_impl="kernel")
+    calc = SQM2(eigh_impl="kernel", device="cpu")
+    afir = BiasEngine([get_potential("afir", gamma=g, fragm_1=f1,
+                                     fragm_2=f2, element_z=z)
+                       for g, f1, f2 in cfg.afir_list])
+    t0 = time.perf_counter()
+    cpu_afir = optimize(calc, coords, z, bias_engine=afir,
+                        config=dataclasses.replace(cfg.afir_opt, nsteps=2),
+                        device="cpu")
+    cpu_neb = neb(calc, detail["path0"].cpu(), z,
+                  dataclasses.replace(cfg.neb, n_steps=2), device="cpu")
+    prefix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = autots(SQM2(device="cpu"), coords, z,
+                   flagship_config(eigh_impl="xla"), device="cpu")
+    card_afir = detail["afir"].energy_history[:3]
+    card_neb = detail["neb"].energy_history[:2]
+    return {
+        "cpu_prefix_s": prefix_s, "cpu_run_s": time.perf_counter() - t0,
+        "afir_prefix_energies": card_afir.tolist(),
+        "max_abs_e_diff_cpu_vs_card_afir": float(
+            np.abs(card_afir - cpu_afir.energy_history).max()),
+        "max_abs_e_diff_cpu_vs_card_neb": float(
+            np.abs(card_neb - cpu_neb.energy_history).max()),
+        "cpu_ts_energy": whole.ts_energy,
+        "cpu_barrier_forward": whole.barrier_forward,
+        "cpu_barrier_backward": whole.barrier_backward,
+        "cpu_n_imaginary": whole.n_imaginary,
+        "max_abs_e_diff_cpu_vs_card_ts": abs(whole.ts_energy
+                                             - res.ts_energy),
+        # the IRC's direction follows the sign K1 and LAPACK give the
+        # imaginary mode, so the two barriers are compared as a set
+        "max_abs_e_diff_cpu_vs_card_barriers": float(np.abs(
+            np.sort([whole.barrier_forward, whole.barrier_backward])
+            - np.sort([res.barrier_forward, res.barrier_backward])).max())}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -318,8 +503,8 @@ def main():
           "cuda": torch.version.cuda})
     t_start = time.perf_counter()
     rows = phase_kernel_check(jc, card)
-    launches_a = phase_slice_a(jc, card)
-    launches_b = phase_slice_b(jc, card)
+    main_path = [phase_slice_a(jc, card), phase_slice_b(jc, card),
+                 phase_autots(jc, card), phase_autots(jc, card, full=True)]
 
     kernels = []
     for variant in jc.VARIANTS:
@@ -331,7 +516,7 @@ def main():
             "route": "cuda",
             "source": "multioptpy_tpu_torch/csrc/jacobi_eigh.cu",
             "replaces": "multioptpy_tpu/ops/jacobi_pallas.py:39",
-            "launches": launches_a[variant] + launches_b[variant],
+            "launches": sum(run[variant] for run in main_path),
             "max_abs_err": max(r["eig_err_vs_plain"] for r in checked),
             "ms": sum_of("ms"),
             "plain_ms": sum_of("plain_ms"),

@@ -46,9 +46,16 @@ class Calculator:
         return self.energy_and_gradient(coords, z)[1]
 
     def hessian(self, coords, z):
-        raise NotImplementedError(
-            "exact autodiff Hessians arrive with the LJ calculator "
-            "(ROADMAP Queue 1 item 1); SQM/SQM2 use numerical_hessian")
+        """Exact Hessians (B, 3N, 3N): forward-over-reverse autodiff of each
+        member's energy (SQM/SQM2 override this with their seminumerical
+        Hessian)."""
+        b, n, _ = coords.shape
+
+        def one(x_flat):
+            return self.energy(x_flat.reshape(1, n, 3), z)[0]
+
+        return torch.func.vmap(torch.func.hessian(one))(
+            coords.detach().reshape(b, 3 * n))
 
     def numerical_hessian(self, coords, z, step=1e-3):
         """Central-difference Hessians (B, 3N, 3N) of the analytic gradient:
@@ -76,8 +83,10 @@ def register_calculator(name):
 
 
 def get_calculator(name, **kwargs):
-    """Instantiate a backend by name: "sqm" or "sqm2" in this port."""
-    from multioptpy_tpu_torch.calculators import sqm  # noqa: F401
+    """Instantiate a backend by name: "sqm", "sqm2" or "muller_brown" in
+    this port."""
+    from multioptpy_tpu_torch.calculators import (  # noqa: F401
+        model_surfaces, sqm)
     if name not in _REGISTRY:
         raise KeyError(f"unknown calculator '{name}'; available: "
                        f"{sorted(_REGISTRY)}")
@@ -85,5 +94,6 @@ def get_calculator(name, **kwargs):
 
 
 def available_calculators():
-    from multioptpy_tpu_torch.calculators import sqm  # noqa: F401
+    from multioptpy_tpu_torch.calculators import (  # noqa: F401
+        model_surfaces, sqm)
     return sorted(_REGISTRY)

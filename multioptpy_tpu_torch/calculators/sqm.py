@@ -468,11 +468,11 @@ def _overlap_full(coords, prm, nob):
 def _sqm_eigh(a, impl):
     """Band eigensolver dispatch: "pallas" or "kernel" (steppers.rfo._eigh:
     the Jacobi kernel on CUDA; on the CPU the round-robin Jacobi, or the
-    kernel's plain version) | "seeded" (ops/eigh64.seeded_eigh) | anything
-    else torch.linalg.eigh."""
+    kernel's plain version) | "seeded" (ops/eigh64.seeded_eigh) | a callable
+    (steppers.rfo._eigh) | anything else torch.linalg.eigh."""
     if impl == "seeded":
         return seeded_eigh(a)
-    if impl in ("pallas", "kernel"):
+    if callable(impl) or impl in ("pallas", "kernel"):
         from multioptpy_tpu_torch.steppers.rfo import _eigh
         return _eigh(a, impl)
     return torch.linalg.eigh(a)
@@ -676,7 +676,9 @@ class SQM(Calculator):
         self.srb_k_heavy = kw.pop("srb_k_heavy", None)
         # band eigensolver: "xla" (torch.linalg.eigh) | "pallas" or
         # "kernel" (the Jacobi kernel; see steppers.rfo._eigh) | "seeded"
-        self.eigh_impl = str(kw.pop("eigh_impl", "xla"))
+        # | a callable (h, sweeps) -> (w, v), as steppers.rfo._eigh takes
+        impl = kw.pop("eigh_impl", "xla")
+        self.eigh_impl = impl if callable(impl) else str(impl)
         self.dispersion = str(kw.pop("dispersion", "d2"))
         self.use_d = bool(kw.pop("use_d", False))
         self.k_sd = float(kw.pop("k_sd", 1.0))

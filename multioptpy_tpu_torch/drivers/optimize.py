@@ -3,12 +3,14 @@
 Counterpart of `multioptpy_tpu/drivers/optimize.py` for the RS-RFO methods
 (`rfo_<update>`). The reference's step is one jitted program `vmap`ped over
 structures; here the state carries an explicit leading batch axis and the
-step is a plain function over it: energy/gradient, quasi-Newton Hessian
-update (with periodic exact Hessians), TR/rot projection, the RS-RFO step,
-convergence masking (converged members are frozen) and uphill-step
-rejection with a measured-curvature BFGS update.
+step is a plain function over it: biased energy/gradient, quasi-Newton
+Hessian update (with periodic exact and model Hessians), TR/rot projection,
+the RS-RFO step, convergence masking (converged members are frozen) and
+uphill-step rejection with a measured-curvature BFGS update.
 
-* `optimize()` — host loop on one structure with early exit.
+* `optimize()` — host loop on one structure with early exit; with
+  `config.scan_chunk > 1` the chunked semantics of the reference's
+  `_optimize_chunked` (see `_optimize_chunked`).
 * `optimize_batch()` — a fixed number of steps over a batch (a Python loop
   in place of the reference's `lax.scan`).
 
@@ -23,9 +25,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from multioptpy_tpu_torch.coords.internals import detect_primitives
 from multioptpy_tpu_torch.device import resolve_device
 from multioptpy_tpu_torch.geometry import (project_gradient_tr_rot,
                                            tr_rot_projector)
+from multioptpy_tpu_torch.hessian.model import (make_model_hessian_fn,
+                                                model_hessian)
 from multioptpy_tpu_torch.hessian.updates import auto_scale, update_hessian
 from multioptpy_tpu_torch.ops import hosteval
 from multioptpy_tpu_torch.steppers.rfo import rs_rfo_step, update_trust_radius
@@ -35,9 +40,10 @@ from multioptpy_tpu_torch.units import ANGSTROM2BOHR
 @dataclasses.dataclass(frozen=True)
 class OptimizeConfig:
     """Driver configuration (defaults = reference defaults); the same fields
-    as the reference. This port runs `rfo_*` methods; the options below
-    that select other engines raise NotImplementedError naming the ROADMAP
-    item that ports them."""
+    as the reference. This port runs `rfo_*` methods, bias engines, model
+    Hessians of the kinds `hessian/model.py` assembles, `mfc_count` and
+    `scan_chunk`; the options that select other engines raise
+    NotImplementedError naming the ROADMAP item that ports them."""
 
     method: str = "rfo_fsb"
     nsteps: int = 1000
@@ -51,11 +57,12 @@ class OptimizeConfig:
     delta: float = 1.0
     fc_count: int = -1               # exact Hessian every k steps (-1: never)
     mfc_count: int = -1
-    init_hessian: str = "auto"       # auto | exact | identity
+    init_hessian: str = "auto"       # auto | exact | identity | model:<kind>
     use_gdiis: bool = False
     diis_variant: Optional[str] = None
     follow_mode_index: int = 0
-    eigh_impl: str = "xla"           # "xla" | "jacobi" | "pallas" | "kernel"
+    # "xla" | "jacobi" | "pallas" | "kernel" | a callable (steppers.rfo._eigh)
+    eigh_impl: str = "xla"
     switch_method: Optional[str] = None
     project_tr_rot: bool = True
     scan_chunk: int = 0
@@ -145,32 +152,25 @@ def _parse_method(method):
         "item 8 (CLI)")
 
 
-def _check_supported(config, bias_engine=None):
+def _check_supported(config):
     """Raise for the options whose engines are not ported yet."""
     _parse_method(config.method)
-    if bias_engine is not None:
-        raise NotImplementedError(
-            "bias potentials arrive with AFIR (ROADMAP Queue 1 item 7)")
     unported = {
         "diis": config.effective_diis(),
         "switch_method": config.switch_method,
-        "mfc_count": config.mfc_count > 0,
-        "scan_chunk": config.scan_chunk > 1,
-        "init_hessian=model:*": config.init_hessian.startswith("model:"),
     }
     for name, on in unported.items():
         if on:
             raise NotImplementedError(
-                f"OptimizeConfig {name}: arrives with ROADMAP Queue 1 item 9 "
-                "(model Hessians: item 7; chunked steps and CUDA graphs: a "
-                "later PR)")
+                f"OptimizeConfig {name}: arrives with ROADMAP Queue 1 item 9")
 
 
 def init_state(coords, z, calc, bias_engine=None, config=OptimizeConfig(),
                hessian0=None):
     """The initial batched OptState of coords (B,N,3) (one energy/gradient
-    evaluation, plus the exact Hessian where the config asks for it)."""
-    _check_supported(config, bias_engine)
+    evaluation, plus the model or exact Hessian where the config asks for
+    it; the model Hessian reads the raw gradient)."""
+    _check_supported(config)
     b, n, _ = coords.shape
     dtype, dev = coords.dtype, coords.device
     e, g, raw_g = hosteval.eg_with_raw(calc, coords, z, bias_engine)
@@ -178,8 +178,14 @@ def init_state(coords, z, calc, bias_engine=None, config=OptimizeConfig(),
     if hessian0 is None:
         use_exact = (config.init_hessian == "exact"
                      or (config.init_hessian == "auto" and calc.on_device))
-        hessian0 = (hosteval.hessian(calc, coords, z, bias_engine)
-                    if use_exact else eye.expand(b, -1, -1))
+        if config.init_hessian.startswith("model:"):
+            hessian0 = model_hessian(
+                coords, z, kind=config.init_hessian.split(":", 1)[1],
+                gradient=raw_g)
+        elif use_exact:
+            hessian0 = hosteval.hessian(calc, coords, z, bias_engine)
+        else:
+            hessian0 = eye.expand(b, -1, -1)
     hessian0 = torch.as_tensor(hessian0, dtype=dtype, device=dev)
     return OptState(
         coords=coords, energy=e, gradient=g, raw_gradient=raw_g,
@@ -221,9 +227,12 @@ def state_from_numpy(fields, device=None):
                     converged=conv("converged", torch.bool))
 
 
-def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig()):
-    """Build the batched `state -> state` transition of an `rfo_*` method."""
-    _check_supported(config, bias_engine)
+def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
+                 model_hessian_fn=None):
+    """Build the batched `state -> state` transition of an `rfo_*` method.
+    `model_hessian_fn(coords, raw_gradient)` rebuilds the Hessian every
+    `config.mfc_count` steps."""
+    _check_supported(config)
     _, sub = _parse_method(config.method)
     criteria = config.criteria()
     saddle_order = config.saddle_order
@@ -247,7 +256,16 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig()):
             if bool(rebuild.any()):
                 idx = rebuild.nonzero()[:, 0]
                 h = h.clone()
-                h[idx] = hosteval.hessian(calc, state.coords[idx], z)
+                h[idx] = hosteval.hessian(calc, state.coords[idx], z,
+                                          bias_engine)
+        if config.mfc_count > 0 and model_hessian_fn is not None:
+            # periodic model-Hessian rebuild from the raw gradient
+            rebuild = (state.iteration % config.mfc_count) == 0
+            if bool(rebuild.any()):
+                idx = rebuild.nonzero()[:, 0]
+                h = h.clone()
+                h[idx] = model_hessian_fn(state.coords[idx],
+                                          state.raw_gradient[idx])
 
         # TR/rot-projected effective Hessian, the projected-out subspace
         # shifted to +1e3 so it can never be chosen as a saddle mode
@@ -280,13 +298,14 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig()):
         move = mv_flat.reshape(state.coords.shape)
         move = torch.where(state.converged[:, None, None], 0.0, move)
         new_coords = state.coords + move
-        e_new, g_new = hosteval.energy_and_gradient(calc, new_coords, z)
+        e_new, g_new, raw_g_new = hosteval.eg_with_raw(calc, new_coords, z,
+                                                       bias_engine)
 
         conv_now = check_convergence(g, move, criteria)
         converged = state.converged | conv_now
         new_state = OptState(
             coords=new_coords, energy=e_new, gradient=g_new,
-            raw_gradient=g_new,
+            raw_gradient=raw_g_new,
             prev_coords=state.coords, prev_energy=state.energy,
             prev_raw_gradient=state.raw_gradient,
             hessian=h, trust_radius=trust,
@@ -300,7 +319,7 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig()):
             reject = (~state.converged) & ~conv_now & (
                 e_new > state.energy + 1e-14)
             s_trial = mv_flat
-            y_trial = (g_new - state.raw_gradient).reshape(b, -1)
+            y_trial = (raw_g_new - state.raw_gradient).reshape(b, -1)
             upd_ok = torch.isfinite(y_trial).all(-1) & (
                 (y_trial * s_trial).sum(-1) > 1e-14)
             h_learn = torch.where(upd_ok[:, None, None],
@@ -358,6 +377,96 @@ def _check_device(calc, device):
                          f"optimization was asked to run on {device}")
 
 
+def _model_hessian_fn(coords, z, config):
+    """The mfc_count rebuild: primitives detected once on the starting
+    structure (N,3); the kind of `init_hessian="model:<kind>"`, else the
+    reference's default "lindh"."""
+    if config.mfc_count <= 0:
+        return None
+    kind = (config.init_hessian.split(":", 1)[1]
+            if config.init_hessian.startswith("model:") else "lindh")
+    b, a, t = detect_primitives(coords.detach().cpu().numpy(), z)
+    return make_model_hessian_fn(z, b, a, t, kind)
+
+
+def _optimize_chunked(step, state, config, record_trajectory=False,
+                      callback=None, stop_file="end.txt",
+                      dissociation_limit=None):
+    """`config.scan_chunk` steps between the host's checks, with the
+    semantics of the reference's chunked driver (one `lax.scan` per chunk
+    there, one launch sequence per step here):
+
+    * a step whose energy is non-finite or beyond |E| > 1e8 is rejected:
+      the state stays at the last finite one and the run stops at the end
+      of the chunk ("runaway");
+    * steps past `config.nsteps` (the chunk count rounds it up) are
+      discarded;
+    * `n_iterations` counts up to the step where convergence latched;
+    * stop file, dissociation and callbacks act at chunk boundaries.
+
+    Steps that cannot change the state are not launched: those past the
+    budget, and the rest of a chunk once the structure has converged
+    (frozen) or a step was rejected (the reference discards them); their
+    rows repeat the state, as the reference's do.
+    """
+    chunk = int(config.scan_chunk)
+    energies = [float(state.energy[0])]
+    traj = [state.coords[0].cpu().numpy()] if record_trajectory else None
+    it = 0
+    n_chunks = -(-config.nsteps // chunk)
+    for ci in range(n_chunks):
+        stopped = torch.zeros_like(state.converged)
+        e_h, conv_h, c_h = [], [], []
+        for _ in range(min(chunk, config.nsteps - ci * chunk)):
+            if bool((state.converged | stopped).all()):
+                break
+            new = step(state)
+            active = (~stopped) & (state.iteration < config.nsteps)
+            bad = active & (~torch.isfinite(new.energy)
+                            | (new.energy.abs() > 1e8))
+            state = _select((~active) | bad, state, new)
+            stopped = stopped | bad
+            e_h.append(state.energy[0])
+            conv_h.append(state.converged[0])
+            if record_trajectory:
+                c_h.append(state.coords[0])
+        while len(e_h) < chunk:
+            e_h.append(state.energy[0])
+            conv_h.append(state.converged[0])
+            if record_trajectory:
+                c_h.append(state.coords[0])
+        # one transfer for everything the host inspects
+        e_np = torch.stack(e_h).cpu().numpy()
+        conv_np = torch.stack(conv_h).cpu().numpy()
+        take = min(chunk, config.nsteps - ci * chunk)
+        if conv_np.any():
+            take = min(take, int(np.argmax(conv_np)) + 1)
+        it = ci * chunk + take
+        energies.extend(float(e) for e in e_np[:take])
+        if record_trajectory:
+            traj.extend(c.cpu().numpy() for c in c_h[:take])
+        if callback is not None:
+            callback(it, state)
+        if bool(stopped[0]):
+            print(f"# runaway detected (|E| > 1e8 or non-finite) in "
+                  f"method={config.method} saddle_order="
+                  f"{config.saddle_order} around iteration {it} - "
+                  "keeping the last finite state")
+            break
+        if bool(conv_np[-1]):
+            break
+        if stop_file and os.path.exists(stop_file):
+            break
+        if dissociation_limit and dissociation_detected(
+                state.coords[0], dissociation_limit):
+            break
+    return OptResult(
+        coords=state.coords[0], energy=state.energy[0],
+        gradient=state.gradient[0], converged=state.converged[0],
+        n_iterations=it, energy_history=np.asarray(energies),
+        coords_history=np.stack(traj) if record_trajectory else None)
+
+
 def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
              hessian0=None, record_trajectory=False, callback=None,
              stop_file="end.txt", dissociation_limit=None, device=None):
@@ -366,14 +475,21 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
     `device` (None means the CUDA card) must be where `calc` lives. A
     `stop_file` in the working directory breaks the loop gracefully, and
     `dissociation_limit` (Bohr) aborts a run whose molecule broke apart.
-    `callback(it, state)` sees the batched state (batch of one)."""
+    `callback(it, state)` sees the batched state (batch of one). With
+    `config.scan_chunk > 1` the loop runs `_optimize_chunked`."""
     dev = resolve_device(device)
     _check_device(calc, dev)
     x = _as_coords(coords, dev)[None]
     h0 = None if hessian0 is None else torch.as_tensor(
         hessian0, dtype=x.dtype, device=dev)
     state = init_state(x, z, calc, bias_engine, config, h0)
-    step = make_step_fn(calc, z, bias_engine, config)
+    step = make_step_fn(calc, z, bias_engine, config,
+                        _model_hessian_fn(x[0], z, config))
+    if config.scan_chunk and config.scan_chunk > 1:
+        return _optimize_chunked(
+            step, state, config, record_trajectory=record_trajectory,
+            callback=callback, stop_file=stop_file,
+            dissociation_limit=dissociation_limit)
 
     energies = [float(state.energy[0])]
     traj = [state.coords[0].cpu().numpy()] if record_trajectory else None

@@ -326,13 +326,18 @@ def launch(a3, sweeps, plan):
                                f"failed: cudaError {rc} ({plan})")
         jacobi_eigh_cuda.launches += 1
         jacobi_eigh_cuda.variant_launches[plan.variant] += 1
+        key = (b, d, _DTYPE_TAG[a3.dtype], int(sweeps))
+        shapes = jacobi_eigh_cuda.shape_launches
+        shapes[key] = shapes.get(key, 0) + 1
     return w, v
 
 
 def reset_launches():
-    """Set the total and per-variant launch counts to 0."""
+    """Set the total, per-variant and per-shape ((B, d, dtype tag,
+    sweeps)) launch counts to 0."""
     jacobi_eigh_cuda.launches = 0
     jacobi_eigh_cuda.variant_launches = dict.fromkeys(VARIANTS, 0)
+    jacobi_eigh_cuda.shape_launches = {}
 
 
 reset_launches()

@@ -39,7 +39,7 @@ from multioptpy_tpu_torch.hessian.updates import update_hessian
 from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
 from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_cuda
 from multioptpy_tpu_torch.steppers.rfo import (_eigh, jacobi_sweeps_for,
-                                               rs_rfo_step)
+                                               rfo_extra_sweeps, rs_rfo_step)
 
 
 def host_ms(fn, reps):
@@ -112,7 +112,9 @@ def breakdown(name, calc, x, z, cfg, reps):
         "update_ms": host_ms(lambda: update_hessian(state.hessian, s, y,
                                                     "fsb"), reps),
         "step_ms": host_ms(lambda: step(state), reps),
-        "kernel_rfo_shape_ms": host_ms(lambda: _eigh(h_eff, "pallas"), reps),
+        "kernel_rfo_shape_ms": host_ms(
+            lambda: _eigh(h_eff, "pallas", rfo_extra_sweeps(h_eff.dtype)),
+            reps),
     }
     a_band = torch.randn(b, band, band, dtype=x.dtype, device=x.device)
     a_band = 0.5 * (a_band + a_band.mT)

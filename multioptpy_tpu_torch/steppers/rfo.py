@@ -16,6 +16,17 @@ import torch
 
 _POLE_EPS = 1e-10          # mode participates in the image flip
 SMALL_EIGVAL_THRESH = 1e-6  # mode excluded from the step
+# sweeps the Jacobi routes add to `jacobi_sweeps_for(D)` for an f64 RS-RFO
+# Hessian: TR/rot-projected Hessians with the projected-out block at 1e3
+# and clustered soft modes (model Hessians, their quasi-Newton updates)
+# converge slowly. Over the 257 RFO Hessians of a reduced flagship AutoTS
+# run (Diels-Alder, D = 54) the largest off-diagonal left, relative to
+# max|a|, is 8.3e-6 to 3.4e-5 after 8 sweeps (the count the band keeps),
+# 2.9e-11 to 4.1e-10 after 12 and below 4e-13 after 13 over three runs,
+# one on an H100 and two on CPUs (`python3 -m multioptpy_tpu_torch.flagship`);
+# this takes 14 (ROADMAP Queue 3, F3). f32 keeps one extra sweep: its
+# rounding floor comes first.
+RFO_F64_EXTRA_SWEEPS = 7
 
 
 def _leftmost_secular_root(poles, g2, valid, n_iter=80):
@@ -95,27 +106,39 @@ def jacobi_sweeps_for(d):
     return 5 + max(0, math.ceil(math.log2(max(d, 16) / 16.0)))
 
 
-def _eigh(h, impl):
+def rfo_extra_sweeps(dtype):
+    """The kernel routes' extra sweeps for an RS-RFO Hessian of `dtype`."""
+    return RFO_F64_EXTRA_SWEEPS if dtype == torch.float64 else 1
+
+
+def _eigh(h, impl, extra_sweeps=1):
     """Symmetric eigendecomposition dispatch for batched h (B, D, D), with
     sweeps = `jacobi_sweeps_for(D)`:
 
     "pallas" -- the Hopper Jacobi kernel (ops/jacobi_cuda.py) on a CUDA
-               tensor, in f32 and f64, with sweeps + 1 sweeps (the
-               reference's TPU branch); on a CPU tensor the round-robin
-               matmul Jacobi (ops/jacobi.py) with `sweeps` (its CPU branch).
-    "kernel" -- the kernel's algorithm with sweeps + 1 on every device: the
-               kernel on CUDA, its plain version on the CPU. A CPU run that
-               must reproduce a card run uses it: at the reference's CPU
-               sweep count the Jacobi is not converged on shifted,
-               TR/rot-projected Hessians (Diels-Alder RFO step, D = 54:
-               off-diagonals above 1e-5 after 7 sweeps, below 1e-6 after
-               8; pinned by tests/test_torch_rfo.py).
+               tensor, in f32 and f64, with sweeps + `extra_sweeps` sweeps
+               (one extra: the reference's TPU branch; the RS-RFO step
+               asks for `rfo_extra_sweeps`); on a CPU tensor the
+               round-robin matmul Jacobi (ops/jacobi.py) with `sweeps` (the
+               reference's CPU branch).
+    "kernel" -- the kernel's algorithm with sweeps + `extra_sweeps` on
+               every device: the kernel on CUDA, its plain version on the
+               CPU. A CPU run that must reproduce a card run uses it: at
+               the reference's CPU sweep count the Jacobi is not converged
+               on shifted, TR/rot-projected Hessians (Diels-Alder RFO step,
+               D = 54: off-diagonals above 1e-5 after 7 sweeps; pinned by
+               tests/test_torch_rfo.py).
     "jacobi" -- the round-robin matmul Jacobi.
+    a callable -- called as impl(h, sweeps + `extra_sweeps`), the kernel
+               routes' arguments (`python3 -m multioptpy_tpu_torch.flagship`
+               passes one that keeps the matrices).
     anything else -- torch.linalg.eigh."""
     sweeps = jacobi_sweeps_for(h.shape[-1])
+    if callable(impl):
+        return impl(h, sweeps + extra_sweeps)
     if impl == "kernel" or (impl == "pallas" and h.is_cuda):
         from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_auto
-        return jacobi_eigh_auto(h, sweeps=sweeps + 1)
+        return jacobi_eigh_auto(h, sweeps=sweeps + extra_sweeps)
     if impl == "pallas":
         impl = "jacobi"
     if impl == "jacobi":
@@ -150,7 +173,8 @@ def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
     # Non-finite members are replaced before the solve, which would raise
     # on them (LAPACK) where the reference's eigh returns NaN.
     bad = ~torch.isfinite(sym).all(-1).all(-1)
-    d, v = _eigh(torch.where(bad[:, None, None], eye, sym), eigh_impl)
+    d, v = _eigh(torch.where(bad[:, None, None], eye, sym), eigh_impl,
+                 rfo_extra_sweeps(sym.dtype))
     bad = bad | ~(torch.isfinite(d).all(-1) & torch.isfinite(v).all((-2, -1)))
     d = torch.where(bad[:, None], 1.0, d)
     v = torch.where(bad[:, None, None], eye, v)

@@ -159,3 +159,113 @@ def test_f32_input_runs_in_f32():
     assert got.coords.dtype == torch.float32
     assert np.isfinite(got.energy_history).all()
     assert (got.energy_history[-1] < got.energy_history[0] + 1e-4).all()
+
+
+_AFIR = [(300.0, [1], [11]), (300.0, [4], [12])]
+
+
+def test_afir_biased_model_hessian_steps_match_reference():
+    """3 AFIR-biased rfo_fsb steps from the lindh2007d3_raw model Hessian,
+    rebuilt every 2 steps (mfc_count), on the Diels-Alder +1 cation."""
+    from multioptpy_tpu.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu.potentials import BiasEngine as RefEngine
+    from multioptpy_tpu.potentials import get_potential as ref_get
+    from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
+
+    coords, z = diels_alder_reactant()
+    ref_bias = RefEngine([ref_get("afir", gamma=g, fragm_1=f1, fragm_2=f2,
+                                  element_z=z) for g, f1, f2 in _AFIR])
+    bias = BiasEngine([get_potential("afir", gamma=g, fragm_1=f1,
+                                     fragm_2=f2, element_z=z)
+                       for g, f1, f2 in _AFIR])
+    kw = dict(method="rfo_fsb", nsteps=3, mfc_count=2,
+              init_hessian="model:lindh2007d3_raw")
+    ref = ref_opt.optimize(ref_sqm.SQM2(charge=1), jnp.asarray(coords),
+                           jnp.asarray(z), bias_engine=ref_bias,
+                           config=ref_opt.OptimizeConfig(**kw),
+                           record_trajectory=True)
+    got = opt.optimize(sqm.SQM2(charge=1, device="cpu"), coords, z,
+                       bias_engine=bias, config=opt.OptimizeConfig(**kw),
+                       record_trajectory=True, device="cpu")
+    assert got.n_iterations == ref.n_iterations == 3
+    np.testing.assert_allclose(got.energy_history,
+                               np.asarray(ref.energy_history), rtol=1e-10,
+                               atol=0)
+    np.testing.assert_allclose(got.coords_history,
+                               np.asarray(ref.coords_history), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(got.gradient.numpy(), np.asarray(ref.gradient),
+                               rtol=0, atol=1e-9)
+
+
+_RUNAWAY_RADIUS = 2.0
+
+
+def _ref_runaway_calc():
+    from multioptpy_tpu.calculators.base import Calculator as RefCalculator
+
+    class Runaway(RefCalculator):
+        """A well centered far out whose energy is NaN past a radius."""
+
+        def energy(self, coords, z):
+            e = 0.5 * jnp.sum((coords - 6.0) ** 2)
+            r = jnp.sqrt(jnp.sum(coords ** 2))
+            return jnp.where(r > _RUNAWAY_RADIUS, jnp.nan, e)
+
+    return Runaway()
+
+
+def _runaway_calc():
+    from multioptpy_tpu_torch.calculators.base import Calculator
+
+    class Runaway(Calculator):
+        def energy(self, coords, z):
+            e = 0.5 * ((coords - 6.0) ** 2).sum((-2, -1))
+            r = torch.sqrt((coords ** 2).sum((-2, -1)))
+            return torch.where(r > _RUNAWAY_RADIUS, torch.nan, e)
+
+    return Runaway(device="cpu")
+
+
+@pytest.mark.parametrize("chunk", [3, 4])
+def test_scan_chunk_keeps_the_last_finite_state(chunk):
+    """The chunked driver rejects the step that goes non-finite and returns
+    the last finite state, as the reference's `_optimize_chunked` does."""
+    x0 = np.array([[0.1, -0.2, 0.05]])
+    kw = dict(method="rfo_fsb", nsteps=20, scan_chunk=chunk,
+              init_hessian="identity")
+    ref = ref_opt.optimize(_ref_runaway_calc(), jnp.asarray(x0),
+                           jnp.array([1]),
+                           config=ref_opt.OptimizeConfig(**kw),
+                           record_trajectory=True)
+    got = opt.optimize(_runaway_calc(), x0, np.array([1]),
+                       config=opt.OptimizeConfig(**kw),
+                       record_trajectory=True, device="cpu")
+    assert np.isfinite(float(ref.energy)) and np.isfinite(float(got.energy))
+    assert got.n_iterations == ref.n_iterations < 20
+    np.testing.assert_allclose(got.energy_history,
+                               np.asarray(ref.energy_history), rtol=1e-12,
+                               atol=0)
+    np.testing.assert_allclose(got.coords.numpy(), np.asarray(ref.coords),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got.coords_history,
+                               np.asarray(ref.coords_history), rtol=0,
+                               atol=1e-12)
+
+
+def test_scan_chunk_convergence_latch_matches_reference():
+    """n_iterations is the step where convergence latched inside a chunk."""
+    x0 = _waters(1, seed=11)[0]
+    kw = dict(method="rfo_fsb", nsteps=40, scan_chunk=16,
+              max_force=3e-3, rms_force=2e-3, max_displacement=1e-2,
+              rms_displacement=7e-3)
+    ref = ref_opt.optimize(ref_sqm.SQM2(charge=1), jnp.asarray(x0),
+                           jnp.asarray(_Z),
+                           config=ref_opt.OptimizeConfig(**kw))
+    got = opt.optimize(sqm.SQM2(charge=1, device="cpu"), x0, _Z,
+                       config=opt.OptimizeConfig(**kw), device="cpu")
+    assert bool(got.converged) and bool(ref.converged)
+    assert got.n_iterations == ref.n_iterations < 16
+    np.testing.assert_allclose(got.energy_history,
+                               np.asarray(ref.energy_history), rtol=0,
+                               atol=1e-9)

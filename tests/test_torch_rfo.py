@@ -114,6 +114,47 @@ def test_kernel_route_is_the_plain_version_on_cpu():
         assert torch.equal(w, w_p) and torch.equal(v, v_p)
 
 
+def test_callable_eigh_impl_gets_the_kernel_routes_arguments():
+    """A callable eigh_impl receives what the kernel routes would (the
+    matrices and their sweep count), in the RS-RFO step and in the SQM
+    band, and its answer is the one used: answered by the kernel's
+    algorithm, the step and the energy equal the "kernel" route's."""
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_plain
+    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
+                                                   rfo_extra_sweeps)
+
+    seen = []
+
+    def record(h, sweeps):
+        seen.append((tuple(h.shape), sweeps))
+        return jacobi_eigh_plain(h, sweeps)
+
+    rng = np.random.default_rng(9)
+    g = torch.as_tensor(rng.standard_normal((2, 54)))
+    h = torch.as_tensor(_hessians(rng, 2, 54, "indefinite"))
+    tr = torch.full((2,), 0.3, dtype=torch.float64)
+    for impl in (record, "kernel"):
+        step, _ = rs_rfo_step(g, h, tr, eigh_impl=impl)
+        if impl is record:
+            got = step
+    assert torch.equal(got, step)
+    assert seen == [((2, 54, 54), jacobi_sweeps_for(54)
+                      + rfo_extra_sweeps(torch.float64))]
+
+    seen.clear()
+    # HCN+ (Bohr)
+    x = torch.tensor([[[0.0, 0.0, 0.0], [0.0, 0.0, 2.185], [0.19, 0.0,
+                                                             -2.011]]],
+                     dtype=torch.float64)
+    z = np.array([6, 7, 1])
+    e_rec = SQM2(charge=1, eigh_impl=record, device="cpu").energy(x, z)
+    e_ker = SQM2(charge=1, eigh_impl="kernel", device="cpu").energy(x, z)
+    assert torch.equal(e_rec, e_ker)
+    assert seen and all(s == jacobi_sweeps_for(shape[-1]) + 1
+                        for shape, s in seen)
+
+
 def test_reference_cpu_sweeps_leave_the_rfo_hessian_unconverged():
     """Pins why the "kernel" route exists. On the Diels-Alder TR/rot-
     projected RFO Hessian (D = 54, projected-out block shifted to 1e3) the
@@ -144,6 +185,55 @@ def test_reference_cpu_sweeps_leave_the_rfo_hessian_unconverged():
     assert off_diagonal(v) < 1e-6
     np.testing.assert_allclose(w.numpy(), torch.linalg.eigvalsh(h_eff).numpy(),
                                rtol=0, atol=1e-9)
+
+
+def test_f64_rfo_sweeps_converge_the_model_hessian_step():
+    """Pins F3 (ROADMAP Queue 3). The RS-RFO Hessian of the flagship's
+    AFIR stage (the lindh2007d3_raw model Hessian on detected primitives,
+    TR/rot-projected, projected-out block at 1e3, D = 54) keeps
+    off-diagonals above 1e-5 after one extra sweep (the band's count) and
+    the step then misses the converged one by more than 1e-5 Bohr; at the
+    f64 RS-RFO count the step matches torch.linalg.eigh's."""
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.coords.internals import detect_primitives
+    from multioptpy_tpu_torch.geometry import (project_gradient_tr_rot,
+                                               tr_rot_projector)
+    from multioptpy_tpu_torch.hessian.model import make_model_hessian_fn
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu_torch.steppers import rfo
+
+    c, z = diels_alder_reactant()
+    x = torch.as_tensor(c)[None]
+    _, g = SQM2(device="cpu").energy_and_gradient(x, z)
+    h = make_model_hessian_fn(z, *detect_primitives(c, z),
+                              "lindh2007d3_raw")(x, g)
+    p = tr_rot_projector(x)
+    h_eff = p.mT @ h @ p
+    h_eff = 0.5 * (h_eff + h_eff.mT) + 1e3 * (torch.eye(54,
+                                                        dtype=h.dtype) - p)
+    g_flat = project_gradient_tr_rot(g, x).reshape(1, -1)
+    trust = torch.tensor([0.5 * 1.8897261254578281], dtype=torch.float64)
+
+    def off_diagonal(v):
+        a1 = v.mT @ h_eff @ v
+        return (a1 - torch.diag_embed(torch.diagonal(
+            a1, dim1=-2, dim2=-1))).abs().max().item()
+
+    assert off_diagonal(rfo._eigh(h_eff, "kernel")[1]) > 1e-5
+    extra = rfo.rfo_extra_sweeps(torch.float64)
+    assert off_diagonal(rfo._eigh(h_eff, "kernel", extra)[1]) < 1e-10
+    exact, _ = rfo.rs_rfo_step(g_flat, h_eff, trust, eigh_impl="xla")
+    got, _ = rfo.rs_rfo_step(g_flat, h_eff, trust, eigh_impl="kernel")
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=0,
+                               atol=1e-10)
+    w, v = rfo._eigh(h_eff, "kernel")
+    orig = rfo._eigh
+    try:
+        rfo._eigh = lambda h, impl, extra_sweeps=1: (w, v)
+        short, _ = rfo.rs_rfo_step(g_flat, h_eff, trust, eigh_impl="kernel")
+    finally:
+        rfo._eigh = orig
+    assert (short - exact).abs().max().item() > 1e-5
 
 
 def test_geometry_and_fixtures_match_reference():
