@@ -39,7 +39,28 @@ Phases, each printing one JSON line:
      redistribution every 25, two candidates, a 70-step IRC). It must find
      one imaginary mode and a finite positive forward barrier, and launch
      the block variant in the NEB and in the IRC.
-Slice A must launch the warp variant and slice B the block variant. Then
+  6. methods: the optimizer method surface on the card, through `optimize`
+     and `optimize_batch`, eigh_impl="pallas" on stepper and calculator.
+     (a) Diels-Alder on SQM2 f64, 20 steps each: RS-P-RFO and mode-
+     following RS-I-RFO (Bofill, saddle_order 1, an exact Hessian every 5
+     steps) from the full flagship's saddle-stage start; block updates,
+     TRIM, mass weighting, DIC, crsirfo with a C2-C3 bond constraint,
+     GEDIIS, KDIIS, `-opt fire rfo_fsb`, FIRE, L-BFGS, CG and GPmin from
+     the reactant. Each must give finite energies whose first 3 agree with
+     the same run on the CPU (the kernel's algorithm) to 1e-8 Ha; each
+     RS-P-RFO run must launch the block variant. Then the RS-P-RFO
+     Hessians of those runs, kept by a second pass, must be converged by
+     the step's 14 f64 sweeps (largest off-diagonal <= 1e-12 of max|a|).
+     (b) The ensemble of slice A (256 S8 rings, SQM f32) through
+     `optimize_batch` with FIRE, L-BFGS and Adam, 150 steps each; 8
+     members' first 3 energies must agree with a CPU run of those 8 to
+     3e-5 of |E| (f32; the relative tolerance of tests/test_jacobi_pallas.py).
+     Each run prints its steps, ms per step (per structure and step in
+     (b)) and K1 launches by shape.
+Slice A must launch the warp variant and slice B the block variant. The
+kernel_check rows time the wrapper and the kernel launch alone (padded
+input, no sort or gather) as the median of 3 groups of CUDA-event timings
+each. Then
 the kernels line (one entry per variant), the card's name and power
 limit, and last the fixed
 {"ok": true, "device": ...} line. Any failed check raises: exit code != 0.
@@ -98,6 +119,13 @@ def random_sym(gen, b, d, dtype, degenerate=False):
                                              dtype=torch.float64), 4)[:d]
     w = w + 1e-7 * (torch.arange(d, dtype=torch.float64) % 2)
     return ((q * w[None, None, :]) @ q.mT).to(dtype).cuda()
+
+
+def median_ms(fn, groups=3):
+    """The median of `groups` CUDA-event timings of fn (`cuda_ms` each)."""
+    from multioptpy_tpu_torch.device import cuda_ms
+
+    return float(np.median([cuda_ms(fn) for _ in range(groups)]))
 
 
 def phase_kernel_check(jc, card):
@@ -183,10 +211,14 @@ def phase_kernel_check(jc, card):
                   and err_o <= tol_r * d)
         row["ok"] = ok
         if (b, d, dtype, where) in cases:
-            row["ms"] = cuda_ms(lambda: jc.jacobi_eigh_cuda(a, sw))
+            row["ms"] = median_ms(lambda: jc.jacobi_eigh_cuda(a, sw))
+            a3 = jc.pad_to_even(a)[0].contiguous()
+            plan = jc.launch_plan(b, a3.shape[-1], dtype,
+                                  jc._prepare(0, dtype))
+            row["kernel_only_ms"] = median_ms(lambda: jc.launch(a3, sw, plan))
             row["plain_ms"] = cuda_ms(lambda: jc.jacobi_eigh_plain(a, sw),
                                       reps=3)
-            row["library_ms"] = cuda_ms(lambda: torch.linalg.eigh(a))
+            row["library_ms"] = median_ms(lambda: torch.linalg.eigh(a))
             row["bound_ms"], row["bound_by"] = bound_ms(b, d, sw, dtype)
         emit({"phase": "kernel_check", **row, "card": card})
         if not ok:
@@ -432,7 +464,7 @@ def phase_autots(jc, card, full=False):
             raise AssertionError(f"autots: {out['cpu_n_imaginary']} "
                                  f"imaginary modes on the CPU, "
                                  f"{res.n_imaginary} on the card")
-    return launches
+    return launches, res
 
 
 def reduced_on_cpu(res, detail, coords, z):
@@ -490,6 +522,128 @@ def reduced_on_cpu(res, detail, coords, z):
             - np.sort([res.barrier_forward, res.barrier_backward])).max())}
 
 
+def shape_counts(jc):
+    return {f"{b}x{d}x{d} {tag} sweeps={sw}": n for (b, d, tag, sw), n
+            in sorted(jc.jacobi_eigh_cuda.shape_launches.items())}
+
+
+def phase_methods(jc, card, saddle_start, n_steps=20):
+    """(a) the Diels-Alder method runs on SQM2 f64 and the RS-P-RFO sweep
+    check; (b) the S8 ensemble through optimize_batch."""
+    import dataclasses
+
+    from multioptpy_tpu_torch.calculators.sqm import SQM, SQM2
+    from multioptpy_tpu_torch.drivers.optimize import (OptimizeConfig,
+                                                       optimize_batch)
+    from multioptpy_tpu_torch.flagship import (method_runs, run_method,
+                                               saddle_sweep_residuals)
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
+                                                   rfo_extra_sweeps)
+
+    torch.set_num_threads(8)
+    reactant, z = diels_alder_reactant()
+    starts = {"reactant": reactant, "saddle": saddle_start.cpu().numpy()}
+    gpu_calc = SQM2(eigh_impl="pallas", device="cuda")
+    cpu_calc = SQM2(eigh_impl="kernel", device="cpu")
+    totals = dict.fromkeys(jc.VARIANTS, 0)
+    for label, kw, start in method_runs():
+        jc.reset_launches()
+        t0 = time.perf_counter()
+        res = run_method(gpu_calc, starts[start], z, kw, n_steps, "pallas",
+                         "cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(jc.jacobi_eigh_cuda.variant_launches)
+        by_shape = shape_counts(jc)
+        for v in totals:
+            totals[v] += launches[v]
+        t0 = time.perf_counter()
+        cpu = run_method(cpu_calc, starts[start], z, kw, 2, "kernel", "cpu")
+        cpu_s = time.perf_counter() - t0
+        n = min(3, len(cpu.energy_history), len(res.energy_history))
+        diff = float(np.abs(res.energy_history[:n]
+                            - cpu.energy_history[:n]).max())
+        out = {"phase": "methods", "run": label, "start": start,
+               "steps": res.n_iterations, "converged": bool(res.converged),
+               "ms_per_step": run_s / max(res.n_iterations, 1) * 1e3,
+               "run_s": run_s, "cpu_2_steps_s": cpu_s,
+               "energies_first3": res.energy_history[:3].tolist(),
+               "energy_final": float(res.energy),
+               "max_abs_e_diff_cpu_vs_card": diff,
+               "kernel_launches": launches,
+               "k1_launches_by_shape": by_shape, "card": card}
+        emit(out)
+        if not np.isfinite(res.energy_history).all():
+            raise AssertionError(f"methods {label}: non-finite energies")
+        if not diff <= 1e-8:
+            raise AssertionError(f"methods {label}: card and CPU energies "
+                                 f"differ by {diff:.3e} Ha (> 1e-8)")
+        if "prfo" in kw["method"] or "mf_" in kw["method"]:
+            if launches["block"] <= 0:
+                raise AssertionError(f"methods {label}: no block-variant "
+                                     "launch")
+
+    # the RS-P-RFO Hessians of the saddle runs, kept by a second pass that
+    # answers the step's eigensolves with torch.linalg.eigh
+    sweeps = jacobi_sweeps_for(54) + rfo_extra_sweeps(torch.float64)
+    t0 = time.perf_counter()
+    check = saddle_sweep_residuals(saddle_start, "cuda", nsteps=n_steps)
+    emit({"phase": "methods_sweep_check", "rs_prfo_sweeps": sweeps,
+          "max_rel_offdiagonal_by_sweeps": check,
+          "seconds": time.perf_counter() - t0, "card": card})
+    for name, rows in check.items():
+        if not rows[sweeps] <= 1e-12:
+            raise AssertionError(f"methods sweep check {name}: "
+                                 f"{rows[sweeps]:.3e} left after {sweeps}")
+
+    # (b) the ensemble with first-order engines
+    batch_n = 256
+    rng = np.random.default_rng(11)
+    batch = torch.as_tensor(s8_ring()[None] + 0.12 * rng.standard_normal(
+        (batch_n, 8, 3)), dtype=torch.float32, device="cuda")
+    zs = np.full(8, 16)
+    calc = SQM(eigh_impl="pallas", device="cuda")
+    cpu_calc = SQM(eigh_impl="kernel", device="cpu")
+    e0 = calc.energy(batch[:8], zs).cpu().numpy()
+    e0_cpu = cpu_calc.energy(batch[:8].cpu(), zs).numpy()
+    for method in ("fire", "lbfgs", "adam"):
+        cfg = OptimizeConfig(method=method, eigh_impl="pallas", **SQM_LOOSE)
+        jc.reset_launches()
+        t0 = time.perf_counter()
+        res = optimize_batch(calc, batch, zs, config=cfg, n_steps=150,
+                             device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(jc.jacobi_eigh_cuda.variant_launches)
+        by_shape = shape_counts(jc)
+        for v in totals:
+            totals[v] += launches[v]
+        cpu = optimize_batch(cpu_calc, batch[:8].cpu(), zs,
+                             config=dataclasses.replace(cfg,
+                                                        eigh_impl="kernel"),
+                             n_steps=2, device="cpu")
+        card3 = np.concatenate([e0[None], res.energy_history[:2, :8]])
+        cpu3 = np.concatenate([e0_cpu[None], cpu.energy_history])
+        rel = float((np.abs(card3 - cpu3) / np.maximum(np.abs(cpu3), 1.0)
+                     ).max())
+        e_hist = res.energy_history
+        out = {"phase": "methods_ensemble", "run": method,
+               "config": "256xS8 SQM f32 pallas, optimize_batch",
+               "steps": 150, "n_converged": int(res.converged.sum()),
+               "ms_per_structure_step": run_s / (batch_n * 150) * 1e3,
+               "run_s": run_s,
+               "median_e_initial": float(np.median(e0)),
+               "median_e_final": float(np.median(e_hist[-1])),
+               "max_rel_e_diff_cpu_vs_card_8": rel,
+               "kernel_launches": launches, "k1_launches_by_shape": by_shape,
+               "card": card}
+        emit(out)
+        if not (np.isfinite(e_hist).all() and rel <= 3e-5):
+            raise AssertionError(f"methods ensemble {method}: {out}")
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -504,7 +658,11 @@ def main():
     t_start = time.perf_counter()
     rows = phase_kernel_check(jc, card)
     main_path = [phase_slice_a(jc, card), phase_slice_b(jc, card),
-                 phase_autots(jc, card), phase_autots(jc, card, full=True)]
+                 phase_autots(jc, card)[0]]
+    full_launches, full_res = phase_autots(jc, card, full=True)
+    from multioptpy_tpu_torch.flagship import saddle_start
+    main_path += [full_launches,
+                  phase_methods(jc, card, saddle_start(full_res))]
 
     kernels = []
     for variant in jc.VARIANTS:
@@ -526,8 +684,10 @@ def main():
             "library_ms": sum_of("library_ms"),
             "shapes": [f"{r['batch']}x{r['d']}x{r['d']} {r['dtype']} "
                        f"sweeps={r['sweeps']}" for r in timed],
-            "note": "ms, plain_ms, bound_ms, library_ms: one call at each "
-                    "main-path shape of this variant, summed"})
+            "kernel_only_ms": sum_of("kernel_only_ms"),
+            "note": "ms (wrapper), kernel_only_ms (launch alone), plain_ms, "
+                    "bound_ms, library_ms: one call at each main-path shape "
+                    "of this variant, summed"})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card)

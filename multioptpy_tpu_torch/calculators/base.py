@@ -71,6 +71,52 @@ class Calculator:
         return 0.5 * (h + h.mT)
 
 
+class BondGradProjWrapper(Calculator):
+    """Zero the bond-stretch gradient between atom pairs (-gfix): each
+    listed pair's stretch direction, rebuilt from the current geometry, is
+    projected out of the gradient, so that bond feels no force while the
+    rest relaxes. Energies and Hessians are the inner calculator's."""
+
+    def __init__(self, inner, pairs):
+        self.inner = inner
+        self.on_device = inner.on_device
+        self.name = f"gfix({inner.name})"
+        self.charge = inner.charge
+        self.multiplicity = inner.multiplicity
+        self.device = inner.device
+        self.options = inner.options
+        self.pairs = tuple((int(i) - 1, int(j) - 1) for i, j in pairs)
+
+    def energy(self, coords, z):
+        return self.inner.energy(coords, z)
+
+    def _b_rows(self, coords):
+        """(B, P, 3N) unit stretch directions."""
+        rows = []
+        for i, j in self.pairs:
+            d = coords[:, i] - coords[:, j]
+            u = d / (torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+                     + 1e-30)
+            row = torch.zeros_like(coords)
+            row[:, i] = u
+            row[:, j] = -u
+            rows.append(row.reshape(coords.shape[0], -1))
+        return torch.stack(rows, dim=1)
+
+    def energy_and_gradient(self, coords, z):
+        e, g = self.inner.energy_and_gradient(coords, z)
+        b = self._b_rows(coords)
+        eye = torch.eye(b.shape[1], dtype=b.dtype, device=b.device)
+        g_flat = g.reshape(g.shape[0], -1)
+        coef = torch.linalg.solve_ex(b @ b.mT + 1e-12 * eye,
+                                     (b @ g_flat[..., None])[..., 0])[0]
+        return e, (g_flat - (b.mT @ coef[..., None])[..., 0]).reshape(
+            g.shape)
+
+    def hessian(self, coords, z):
+        return self.inner.hessian(coords, z)
+
+
 _REGISTRY = {}
 
 
@@ -83,10 +129,10 @@ def register_calculator(name):
 
 
 def get_calculator(name, **kwargs):
-    """Instantiate a backend by name: "sqm", "sqm2" or "muller_brown" in
-    this port."""
+    """Instantiate a backend by name: "sqm", "sqm2", "muller_brown" or
+    "lj" in this port."""
     from multioptpy_tpu_torch.calculators import (  # noqa: F401
-        model_surfaces, sqm)
+        lj, model_surfaces, sqm)
     if name not in _REGISTRY:
         raise KeyError(f"unknown calculator '{name}'; available: "
                        f"{sorted(_REGISTRY)}")
@@ -95,5 +141,5 @@ def get_calculator(name, **kwargs):
 
 def available_calculators():
     from multioptpy_tpu_torch.calculators import (  # noqa: F401
-        model_surfaces, sqm)
+        lj, model_surfaces, sqm)
     return sorted(_REGISTRY)

@@ -1,10 +1,12 @@
 """Command-line entry points of the port: `optmain` and `run_autots`.
 
 Counterpart of `multioptpy_tpu/cli.py` for the flags the ported engines
-serve: the input and its charge and multiplicity, the SQM/SQM2 and
-Muller-Brown backends, the optimizer, Hessian, convergence and trust flags,
-AFIR (`-ma`), the float64 switch, and `run_autots`'s `-cfg`, `-prod`,
-`-nimg` and `-p`. `--device` picks the card (default `cuda`) or the CPU.
+serve: the input and its charge and multiplicity, the SQM/SQM2, LJ and
+Muller-Brown backends, the optimizer (`-opt` with one method, or two for
+RMS-force switching), Hessian, convergence and trust flags, AFIR (`-ma`),
+the float64 switch, `optmain`'s `-diis`, `-delta`, constraints (`-fix`,
+`-pc`, `-gfix`) and guards (`-sc`, `-dc`, `-negeigval`), and
+`run_autots`'s `-cfg`, `-prod`, `-nimg` and `-p`. `--device` picks the card (default `cuda`) or the CPU.
 Any other flag of the reference exits with status 2 and names ROADMAP
 Queue 1 item 18. Atom selections accept the "1,2,4-7" syntax.
 """
@@ -40,7 +42,7 @@ def _base_parser(description):
     p.add_argument("-c", "--charge", type=int, default=0)
     p.add_argument("-m", "--multiplicity", type=int, default=1)
     p.add_argument("-calc", "--calculator", default=None,
-                   help="backend: sqm | sqm2 | muller_brown")
+                   help="backend: lj (default) | sqm | sqm2 | muller_brown")
     p.add_argument("-sqm1", "--sqm1", action="store_true",
                    help="the on-device SQM backend")
     p.add_argument("-sqm2", "--sqm2", action="store_true",
@@ -119,11 +121,8 @@ def _make_calculator(args):
     elif args.sqm1:
         name = "sqm"
     else:
-        raise NotImplementedError(
-            "the reference's default backend (lj) and the host backends "
-            "are not ported: pass -calc sqm|sqm2|muller_brown, -sqm1 or "
-            "-sqm2 (lj: ROADMAP Queue 1 item 1; the others: item 14)")
-    if name not in ("sqm", "sqm2", "muller_brown"):
+        name = "lj"
+    if name not in ("lj", "sqm", "sqm2", "muller_brown"):
         raise NotImplementedError(
             f"calculator '{name}' arrives with ROADMAP Queue 1 item 14")
     return get_calculator(name, charge=charge, multiplicity=mult,
@@ -143,6 +142,76 @@ def _make_bias(args, z):
     return BiasEngine(pots) if pots else None
 
 
+def _is_number(s):
+    try:
+        float(s)
+        return True
+    except ValueError:
+        return False
+
+
+def _make_constraints(args):
+    """-fix and -pc -> Constraints (None without them). -pc takes bond i,j
+    [ang] | angle i,j,k [deg] | dihedral i,j,k,l [deg] | fbond f1 f2 [ang]
+    | x|y|z atoms | atoms_pair i,j | rot | eigvec k."""
+    from multioptpy_tpu_torch.constraints import Constraints
+
+    fixed = num_parse(args.fix_atoms) if args.fix_atoms else []
+    bonds, angles, dihedrals, fbonds = [], [], [], []
+    fixed_coords, atoms_pairs, eigvec_modes = [], [], []
+    pc = list(args.projection_constrain)
+    i = 0
+    while i < len(pc):
+        kind = pc[i]
+        if kind == "fbond":
+            f1, f2 = num_parse(pc[i + 1]), num_parse(pc[i + 2])
+            val = None
+            if i + 3 < len(pc) and _is_number(pc[i + 3]):
+                val = float(pc[i + 3])
+                i += 4
+            else:
+                i += 3
+            fbonds.append((f1, f2, val))
+            continue
+        if kind == "rot":
+            # the driver projects translation and rotation out of every
+            # step already
+            i += 1
+            continue
+        if kind == "eigvec":
+            eigvec_modes.append(int(pc[i + 1]))
+            i += 2
+            continue
+        atoms = num_parse(pc[i + 1])
+        val = None
+        if i + 2 < len(pc) and _is_number(pc[i + 2]):
+            val = float(pc[i + 2])
+            i += 3
+        else:
+            i += 2
+        if kind == "bond":
+            bonds.append((atoms[0], atoms[1], val))
+        elif kind == "angle":
+            angles.append((atoms[0], atoms[1], atoms[2], val))
+        elif kind == "dihedral":
+            dihedrals.append((atoms[0], atoms[1], atoms[2], atoms[3], val))
+        elif kind in ("x", "y", "z"):
+            fixed_coords.extend((a, kind) for a in atoms)
+        elif kind == "atoms_pair":
+            atoms_pairs.append((atoms[0], atoms[1]))
+        else:
+            raise SystemExit(f"error: unknown -pc kind '{kind}' (choose "
+                             f"from bond, fbond, angle, dihedral, x, y, z, "
+                             f"rot, eigvec, atoms_pair)")
+    if not (fixed or bonds or angles or dihedrals or fbonds or fixed_coords
+            or atoms_pairs or eigvec_modes):
+        return None
+    return Constraints(bonds=bonds, angles=angles, dihedrals=dihedrals,
+                       fbonds=fbonds, fixed_atoms=fixed,
+                       fixed_coords=fixed_coords, atoms_pairs=atoms_pairs,
+                       eigvec_modes=eigvec_modes)
+
+
 def _opt_config(args):
     from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig
 
@@ -153,7 +222,9 @@ def _opt_config(args):
     kw = dict(method=method, switch_method=switch, nsteps=args.NSTEP,
               saddle_order=args.saddle_order, fc_count=args.fc_count,
               mfc_count=args.mfc_count, trust_radius_ang=args.trust_radius,
-              trust_radius_min_ang=args.min_trust_radius)
+              trust_radius_min_ang=args.min_trust_radius,
+              diis_variant=getattr(args, "diis_variant", None),
+              delta=getattr(args, "delta", 1.0))
     mh = args.model_hessian or args.use_model_hessian
     if mh:
         kw["init_hessian"] = f"model:{mh}"
@@ -189,15 +260,52 @@ def run_optmain(argv=None):
     """Geometry optimization: optimized.xyz, trajectory.xyz and
     energies.csv in `<input>_opt/`; exit status 0 when converged."""
     p = _base_parser("multioptpy_tpu_torch geometry optimization")
+    p.add_argument("-diis", "--diis_variant", default=None,
+                   choices=["gdiis", "gediis", "kdiis", "ediis", "adiis",
+                            "c2diis"],
+                   help="DIIS extrapolation on the quasi-Newton steps")
+    p.add_argument("-delta", "--delta", type=float, default=1.0,
+                   help="first-order step scale")
+    p.add_argument("-fix", "--fix_atoms", default="",
+                   help="frozen atoms, e.g. 1,2,5-8")
+    p.add_argument("-pc", "--projection_constrain", nargs="*", default=[],
+                   help="bond i,j [value_ang] | angle i,j,k [deg] | "
+                        "dihedral i,j,k,l [deg] | fbond f1 f2 [ang] | "
+                        "x|y|z atoms | atoms_pair i,j | rot | eigvec k")
+    p.add_argument("-gfix", "--gradient_fix_atoms", nargs="*", default=[],
+                   help="zero the bond-stretch gradient of atom pairs, "
+                        "e.g. 1,2")
+    p.add_argument("-sc", "--shape_conditions", nargs="*", default=[],
+                   help="abort unless [value gt|lt atoms] conditions hold, "
+                        "e.g. 2.0 gt 1,2")
+    p.add_argument("-dc", "--dissociate_check", default="10",
+                   help="abort when fragments separate beyond this many "
+                        "ang")
+    p.add_argument("-negeigval", "--detect_negative_eigenvalues",
+                   action="store_true",
+                   help="stop a saddle search (with -fc) whose Hessian has "
+                        "no negative eigenvalue left")
     args = _parse(p, argv)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
+    if args.gradient_fix_atoms:
+        from multioptpy_tpu_torch.calculators.base import BondGradProjWrapper
+        pairs = []
+        for spec in args.gradient_fix_atoms:
+            a = num_parse(spec)
+            if len(a) != 2:
+                raise SystemExit("-gfix expects atom pairs like 1,2")
+            pairs.append((a[0], a[1]))
+        calc = BondGradProjWrapper(calc, pairs)
     bias = _make_bias(args, z)
+    cons = _make_constraints(args)
+    if cons is not None and cons.eigvec_modes:
+        cons.resolve_eigvecs(calc.hessian(coords[None], z)[0])
     cfg = _opt_config(args)
 
     from multioptpy_tpu_torch.drivers.optimize import optimize
     from multioptpy_tpu_torch.io.xyz import write_trajectory
-    from multioptpy_tpu_torch.units import BOHR2ANGSTROM
+    from multioptpy_tpu_torch.units import ANGSTROM2BOHR, BOHR2ANGSTROM
 
     out = _outdir(args, "_opt")
 
@@ -207,7 +315,12 @@ def run_optmain(argv=None):
               f"trust = {float(st.trust_radius[0]):.4f}")
 
     res = optimize(calc, coords, z, bias_engine=bias, config=cfg,
-                   record_trajectory=True, callback=cb, device=args.device)
+                   constraints=cons, record_trajectory=True, callback=cb,
+                   dissociation_limit=float(args.dissociate_check)
+                   * ANGSTROM2BOHR,
+                   shape_conditions=list(args.shape_conditions),
+                   detect_negative_eigenvalues=args.detect_negative_eigenvalues,
+                   device=args.device)
     _write(os.path.join(out, "optimized.xyz"), symbols, res.coords,
            f"E = {float(res.energy):.10f}")
     write_trajectory(os.path.join(out, "trajectory.xyz"), symbols,

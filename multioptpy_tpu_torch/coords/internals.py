@@ -1,13 +1,16 @@
 """Redundant internal coordinates: primitive values and the autodiff Wilson
 B matrix on batched coordinates, and host-side primitive detection.
 
-Counterpart of `multioptpy_tpu/coords/internals.py` (the primitives, `q`,
-`b_matrix`, `detect_primitives`, `linear_bend_axes`, `_components`). The
-primitive vector q(x) is one vectorized function of the geometry, so
-B = dq/dx comes from `torch.func.jacfwd` per member of the batch, as the
-reference's `jax.jacfwd`. The G matrix and the DIC engine (`g_pinv`,
-`delocalized_basis`, `to_cartesian`, the gradient and Hessian transforms)
-arrive with ROADMAP Queue 1 item 9.
+Counterpart of `multioptpy_tpu/coords/internals.py`: the primitives, `q`,
+`b_matrix`, the G matrix and its pseudo-inverse, the gradient and Hessian
+transforms, the Gauss-Newton back-transform, the delocalized (DIC) basis,
+`detect_primitives`, `linear_bend_axes` and `auto_internals`. The primitive
+vector q(x) is one vectorized function of the geometry, so B = dq/dx comes
+from `torch.func.jacfwd` per member of the batch, as the reference's
+`jax.jacfwd`, and the curvature term from `torch.func.hessian`. The
+eigendecompositions are `eigh_fast` (`torch.linalg.eigh`), the reference's
+CPU branch. `cartesian_to_z_matrix` and `local_force_constants` are not
+ported (ROADMAP Queue 1 item 10).
 
 Primitive index arrays are static per molecule (numpy, 0-based).
 """
@@ -17,7 +20,12 @@ import itertools
 import numpy as np
 import torch
 
+from multioptpy_tpu_torch.ops.eigh64 import eigh_fast
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1
+
+
+def _mv(m, x):
+    return (m @ x[..., None])[..., 0]
 
 
 def _stretch(p, idx):
@@ -91,10 +99,10 @@ class InternalCoordinates:
                      for name in ("bonds", "angles", "torsions",
                                   "linear_bends")}
 
-    def torsion_mask(self):
+    def torsion_mask(self, device=None):
         """(M,) bool: which primitive slots hold torsions."""
         nb, na, nt = len(self.bonds), len(self.angles), len(self.torsions)
-        idx = torch.arange(self.n_primitives)
+        idx = torch.arange(self.n_primitives, device=device)
         return (idx >= nb + na) & (idx < nb + na + nt)
 
     # --- primitive values --------------------------------------------------
@@ -134,6 +142,86 @@ class InternalCoordinates:
 
         return torch.func.vmap(torch.func.jacfwd(one))(
             coords.reshape(b, 3 * n))
+
+    @staticmethod
+    def g_matrix(b):
+        return b @ b.mT
+
+    @staticmethod
+    def g_pinv(g, thresh=1e-8):
+        """Moore-Penrose inverse (B, M, M) via a masked eigendecomposition:
+        eigenvalues at or below thresh * max|w| are dropped."""
+        w, v = eigh_fast(g)
+        keep = w > thresh * torch.clamp(w.abs().amax(-1, keepdim=True),
+                                        min=1e-30)
+        inv_w = torch.where(keep, 1.0 / torch.where(keep, w, 1.0), 0.0)
+        return (v * inv_w[..., None, :]) @ v.mT
+
+    # --- gradient / Hessian transforms ------------------------------------
+
+    def cart_to_internal_gradient(self, g_cart, coords):
+        """g_q = G^- B g_x: (B, N, 3) -> (B, M)."""
+        b = self.b_matrix(coords)
+        return _mv(self.g_pinv(self.g_matrix(b)),
+                   _mv(b, g_cart.reshape(b.shape[0], -1)))
+
+    def internal_to_cart_gradient(self, g_q, coords):
+        """g_x = B^T g_q: (B, M) -> (B, N, 3)."""
+        b = self.b_matrix(coords)
+        return _mv(b.mT, g_q).reshape(coords.shape)
+
+    def curvature_correction(self, g_q, coords):
+        """K = sum_k g_q[k] d2 q_k / dx dx' (B, 3N, 3N): the Hessian of the
+        contraction g_q . q(x), forward over reverse per structure."""
+        b, n, _ = coords.shape
+
+        def contracted(x_flat, gq):
+            return (gq * self.q_flat(x_flat[None])[0]).sum()
+
+        return torch.func.vmap(torch.func.hessian(contracted))(
+            coords.reshape(b, 3 * n), g_q)
+
+    def cart_hessian_from_internal(self, h_q, g_q, coords):
+        """H_x = B^T H_q B + K."""
+        b = self.b_matrix(coords)
+        return b.mT @ h_q @ b + self.curvature_correction(g_q, coords)
+
+    def internal_hessian_from_cart(self, h_x, g_cart, coords):
+        """H_q = G^- B (H_x - K) B^T G^-."""
+        b = self.b_matrix(coords)
+        ginv = self.g_pinv(self.g_matrix(b))
+        g_q = _mv(ginv, _mv(b, g_cart.reshape(b.shape[0], -1)))
+        k = self.curvature_correction(g_q, coords)
+        return ginv @ b @ (h_x - k) @ b.mT @ ginv
+
+    # --- iterative back-transformation ------------------------------------
+
+    def to_cartesian(self, q_target, coords0, n_iter=25):
+        """x with q(x) = q_target (B, M) by `n_iter` Gauss-Newton steps from
+        coords0 (B, N, 3); torsion differences wrapped mod 2 pi."""
+        is_torsion = self.torsion_mask(coords0.device)
+        x = coords0
+        for _ in range(n_iter):
+            dq = q_target - self.q(x)
+            dq = torch.where(is_torsion,
+                             torch.atan2(torch.sin(dq), torch.cos(dq)), dq)
+            b = self.b_matrix(x)
+            dx = _mv(b.mT, _mv(self.g_pinv(b @ b.mT), dq))
+            x = x + dx.reshape(x.shape)
+        return x
+
+    # --- delocalized internals (Baker 1996) --------------------------------
+
+    def delocalized_basis(self, coords, n_active=None, thresh=1e-8):
+        """U (B, M, M): eigenvectors of G with nonzero eigenvalues (the DIC
+        active space), the other columns zero, and the (B, M) mask of the
+        kept columns."""
+        del n_active
+        b = self.b_matrix(coords)
+        w, v = eigh_fast(self.g_matrix(b))
+        keep = w > thresh * torch.clamp(w.abs().amax(-1, keepdim=True),
+                                        min=1e-30)
+        return torch.where(keep[..., None, :], v, 0.0), keep
 
 
 # --------------------------------------------------------------------------
@@ -236,3 +324,15 @@ def _components(adj):
                     labels[i] = labels[j] = m
                     changed = True
     return labels
+
+
+def auto_internals(coords_np, z, **kw):
+    """Detect primitives of one structure (N, 3) (near-linear triples as
+    linear-bend pairs) and build InternalCoordinates."""
+    bonds, angles, torsions, linear = detect_primitives(
+        coords_np, z, with_linear=True, **kw)
+    return InternalCoordinates(bonds, angles, torsions,
+                               n_atoms=len(coords_np),
+                               linear_bends=linear,
+                               linear_axes=linear_bend_axes(coords_np,
+                                                            linear))

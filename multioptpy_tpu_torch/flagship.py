@@ -5,12 +5,19 @@ counts on the eigenproblems the flagship poses.
 tests/test_tpu_flagship_smoke.py, or with `full` the one of
 tests/test_flagship_autots.py (`chip_smoke.py` runs both on the card).
 
+`SADDLE_RUNS` are the transition-state refinements of `chip_smoke.py`'s
+`methods` phase: RS-P-RFO and mode-following RS-I-RFO with Bofill updates
+and an exact Hessian every 5 steps, from the full flagship's saddle-stage
+start (`saddle_start`); `method_runs()` lists them with the phase's other
+Diels-Alder runs, and `run_method` runs one.
+
 Run as a script, it drives the reduced flagship on the card (or, with
 `--device cpu`, on the CPU) with every Jacobi call answered by
 `torch.linalg.eigh`, keeps the matrices those calls receive (every RS-RFO
 Hessian, a sample of SQM bands), and prints, per sweep count, the largest
 off-diagonal the kernel's algorithm (its plain version) leaves relative
-to max|a|:
+to max|a| (`chip_smoke.py`'s `methods` phase does the same for the
+RS-P-RFO Hessians of `SADDLE_RUNS`, through `saddle_sweep_residuals`):
 
     python3 -m multioptpy_tpu_torch.flagship [--device cpu]
 """
@@ -71,8 +78,102 @@ def flagship_config(full=False, eigh_impl="pallas"):
                                     eigh_impl=eigh_impl))
 
 
-def sweep_residuals(device=None, sweep_counts=(8, 9, 10, 11, 12, 13, 14,
-                                                16)):
+SADDLE_RUNS = {
+    name: dict(method=name, saddle_order=1, fc_count=5)
+    for name in ("rsprfo_bofill", "mf_rsirfo_bofill")}
+
+
+def method_runs():
+    """(label, OptimizeConfig fields, start) of the Diels-Alder method runs:
+    `SADDLE_RUNS` from the saddle start, the other RS-I-RFO routes, two DIIS
+    variants, the RMS-force switch and four first-order engines from the
+    reactant."""
+    runs = [(name, kw, "saddle") for name, kw in SADDLE_RUNS.items()]
+    runs += [(m, dict(method=m), "reactant") for m in (
+        "rsirfo_block_fsb", "rsirfo_fsb_trim", "mwrsirfo_fsb",
+        "dic_rsirfo_fsb", "crsirfo_fsb")]
+    runs += [(f"rfo_fsb -diis {v}", dict(method="rfo_fsb", diis_variant=v),
+              "reactant") for v in ("gediis", "kdiis")]
+    runs += [("-opt fire rfo_fsb", dict(method="rfo_fsb",
+                                        switch_method="fire"), "reactant")]
+    runs += [(m, dict(method=m), "reactant")
+             for m in ("fire", "lbfgs", "cg", "gpmin")]
+    return runs
+
+
+def method_constraints(method):
+    """The constraint of a method run: `crsirfo` holds the C2-C3 bond
+    (`-pc bond 2,3`); the others run unconstrained."""
+    from multioptpy_tpu_torch.constraints import Constraints
+
+    return (Constraints(bonds=[(2, 3, None)])
+            if method.startswith("crsirfo") else None)
+
+
+def run_method(calc, start, z, kw, nsteps, eigh_impl, device):
+    """`optimize` of one method run from `start` (N, 3)."""
+    from multioptpy_tpu_torch.drivers.optimize import optimize
+
+    return optimize(calc, start, z, config=OptimizeConfig(
+        nsteps=nsteps, eigh_impl=eigh_impl, **kw),
+        constraints=method_constraints(kw["method"]), device=device)
+
+
+SWEEP_COUNTS = (8, 9, 10, 11, 12, 13, 14, 16)
+
+
+def saddle_start(res):
+    """The saddle stage's starting geometry of an AutoTS result: the NEB
+    image of the selected candidate."""
+    idx = next(c["index"] for c in res.candidates if c["selected"])
+    return res.neb_path[idx]
+
+
+def offdiagonal_by_sweeps(mats, sweep_counts=SWEEP_COUNTS):
+    """{sweeps: largest off-diagonal / max|a|} the kernel's algorithm (its
+    plain version) leaves on the batch `mats`, and the matrix count."""
+    from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_plain
+
+    a = torch.cat(mats)
+    scale = a.abs().amax((-2, -1))
+    rows = {"matrices": int(a.shape[0])}
+    for sw in sweep_counts:
+        _, v = jacobi_eigh_plain(a, sw)
+        r = v.mT @ a @ v
+        off = (r - torch.diag_embed(torch.diagonal(r, dim1=-2, dim2=-1))
+               ).abs().amax((-2, -1)) / scale
+        rows[sw] = float(off.max())
+    return rows
+
+
+def saddle_sweep_residuals(start, device=None, nsteps=20):
+    """Run `SADDLE_RUNS` from `start` (N, 3) for `nsteps` steps each with
+    the RS-P-RFO eigensolves answered by `torch.linalg.eigh` through an
+    `eigh_impl` that keeps the matrices; returns {run: offdiagonal_by_
+    sweeps(...)} over every Hessian the step diagonalized."""
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.drivers.optimize import optimize
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+
+    dev = resolve_device(device)
+    _, z = diels_alder_reactant()
+    calc = SQM2(device=dev)
+    out = {}
+    for name, kw in SADDLE_RUNS.items():
+        kept = []
+
+        def record(h, sweeps):
+            del sweeps
+            kept.append(h.clone())
+            return torch.linalg.eigh(h)
+
+        optimize(calc, start, z, config=OptimizeConfig(
+            nsteps=nsteps, eigh_impl=record, **kw), device=dev)
+        out[name] = offdiagonal_by_sweeps(kept)
+    return out
+
+
+def sweep_residuals(device=None, sweep_counts=SWEEP_COUNTS):
     """Run the reduced flagship on `device` (None means the CUDA card) with
     every Jacobi call answered by `torch.linalg.eigh` through an
     `eigh_impl` that keeps the matrices, and return {kind: {sweeps: largest
@@ -82,7 +183,6 @@ def sweep_residuals(device=None, sweep_counts=(8, 9, 10, 11, 12, 13, 14,
     of each kind."""
     from multioptpy_tpu_torch.calculators.sqm import SQM2
     from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
-    from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_plain
     from multioptpy_tpu_torch.workflows.autots import autots
 
     dev = resolve_device(device)
@@ -103,19 +203,8 @@ def sweep_residuals(device=None, sweep_counts=(8, 9, 10, 11, 12, 13, 14,
     coords, z = diels_alder_reactant()
     autots(SQM2(eigh_impl=record, device=dev), coords, z,
            flagship_config(eigh_impl=record), device=dev)
-    out = {}
-    for kind, mats in kept.items():
-        a = torch.cat(mats)
-        scale = a.abs().amax((-2, -1))
-        rows = {"matrices": int(a.shape[0])}
-        for sw in sweep_counts:
-            _, v = jacobi_eigh_plain(a, sw)
-            r = v.mT @ a @ v
-            off = (r - torch.diag_embed(torch.diagonal(r, dim1=-2, dim2=-1))
-                   ).abs().amax((-2, -1)) / scale
-            rows[sw] = float(off.max())
-        out[kind] = rows
-    return out
+    return {kind: offdiagonal_by_sweeps(mats, sweep_counts)
+            for kind, mats in kept.items()}
 
 
 def main(argv=None):

@@ -1,4 +1,5 @@
-"""Geometry utilities on batched coordinates: masses and TR/rot projection.
+"""Geometry utilities on batched coordinates: masses, TR/rot projection and
+the -sc shape conditions.
 
 Counterpart of `multioptpy_tpu/geometry.py`. Coordinates carry an explicit
 leading batch axis, (B, N, 3) in Bohr, in place of the reference's `vmap`.
@@ -86,3 +87,54 @@ def project_hessian_tr_rot(hessian, coords, masses=None):
     p = tr_rot_projector(coords, masses)
     h = p.mT @ hessian @ p
     return 0.5 * (h + h.mT)
+
+
+def judge_shape_condition(coords, spec):
+    """True -> abort: some [value, gt|lt, atoms] condition is violated.
+
+    The host-side guard of the -sc flag, on one structure (N, 3) in Bohr.
+    Triples: atoms "i,j" = bond length [Angstrom], "i,j,k" = angle at j
+    [deg], "i,j,k,l" = dihedral [deg] (1-based); `gt`/`lt` states what must
+    remain true."""
+    spec = list(spec)
+    if not spec:
+        return False
+    if len(spec) % 3 != 0:
+        raise ValueError("-sc expects repeated [value gt|lt atoms] triples")
+    c = np.asarray(coords.detach().cpu() if isinstance(coords, torch.Tensor)
+                   else coords, dtype=np.float64)
+    bohr2ang = 0.52917721067
+    for i in range(0, len(spec), 3):
+        value = float(spec[i])
+        op = str(spec[i + 1]).lower()
+        atoms = [int(a) - 1 for a in str(spec[i + 2]).split(",")]
+        if len(atoms) == 2:
+            cur = float(np.linalg.norm(c[atoms[0]] - c[atoms[1]])) * bohr2ang
+        elif len(atoms) == 3:
+            v1 = c[atoms[0]] - c[atoms[1]]
+            v2 = c[atoms[2]] - c[atoms[1]]
+            cos = np.dot(v1, v2) / max(
+                np.linalg.norm(v1) * np.linalg.norm(v2), 1e-12)
+            cur = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+        elif len(atoms) == 4:
+            b1 = c[atoms[1]] - c[atoms[0]]
+            b2 = c[atoms[2]] - c[atoms[1]]
+            b3 = c[atoms[3]] - c[atoms[2]]
+            n1 = np.cross(b1, b2)
+            n2 = np.cross(b2, b3)
+            m = np.cross(n1, b2 / max(np.linalg.norm(b2), 1e-12))
+            cur = float(np.degrees(np.arctan2(np.dot(m, n2),
+                                              np.dot(n1, n2))))
+        else:
+            raise ValueError(f"-sc atoms '{spec[i + 2]}': need 2-4 atoms")
+        if op == "gt":
+            ok = cur > value
+        elif op == "lt":
+            ok = cur < value
+        else:
+            raise ValueError(f"-sc operator '{op}': use gt or lt")
+        if not ok:
+            print(f"# shape condition violated: {spec[i + 2]} = {cur:.3f} "
+                  f"not {op} {value} - aborting")
+            return True
+    return False

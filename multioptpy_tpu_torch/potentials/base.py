@@ -20,6 +20,29 @@ def idx0(atoms):
     return np.asarray(atoms, dtype=np.int32) - 1
 
 
+def _angle(p1, p2, p3, eps=1e-12):
+    """Angle p1-p2-p3 in radians via atan2, over points (..., 3)."""
+    v1 = p1 - p2
+    v2 = p3 - p2
+    cross = torch.linalg.cross(v1, v2, dim=-1)
+    return torch.atan2(torch.sqrt((cross * cross).sum(-1) + eps),
+                       (v1 * v2).sum(-1))
+
+
+def _dihedral(p1, p2, p3, p4, eps=1e-12):
+    """Signed dihedral in radians, phi = atan2((n1 x n2) . b2_hat, n1 . n2)
+    (IUPAC sign convention), over points (..., 3)."""
+    b1 = p2 - p1
+    b2 = p3 - p2
+    b3 = p4 - p3
+    n1 = torch.linalg.cross(b1, b2, dim=-1)
+    n2 = torch.linalg.cross(b2, b3, dim=-1)
+    b2n = b2 / torch.sqrt((b2 * b2).sum(-1, keepdim=True) + eps)
+    x = (n1 * n2).sum(-1)
+    y = (torch.linalg.cross(n1, n2, dim=-1) * b2n).sum(-1)
+    return torch.atan2(y, x)
+
+
 class BiasPotential:
     """Base class. Subclasses define `name`, `init_params()` and
     `energy(coords (B, N, 3), params) -> (B,)`."""

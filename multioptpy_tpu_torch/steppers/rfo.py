@@ -1,13 +1,14 @@
 """Restricted-step (image-function) rational-function-optimization steps,
 batched.
 
-Counterpart of the RS-RFO part of `multioptpy_tpu/steppers/rfo.py`: one
-eigendecomposition per step, the image flip done on (eigenvalues,
-gradient components), fixed-trip bisections for the secular equation, and
-the trust radius met by a parallel log-grid of alpha values. Where the
-reference `vmap`s (over structures, and over the alpha grid) the port
+Counterpart of `multioptpy_tpu/steppers/rfo.py`: one eigendecomposition per
+step, the image flip done on (eigenvalues, gradient components), fixed-trip
+bisections for the secular equation; RS-RFO meets the trust radius by a
+parallel log-grid of alpha values, RS-P-RFO by a bisection on alpha. Where
+the reference `vmap`s (over structures, and over the alpha grid) the port
 carries explicit tensor axes: gradient (B, D), Hessian (B, D, D), trust
-radius (B,), and an alpha axis inside `_rfo_step_grid`.
+radius (B,), and an alpha axis inside `_rfo_step_grid`. The reference's
+`lax.cond` on the trust radius (RS-P-RFO) is a per-row select.
 """
 
 import math
@@ -206,6 +207,129 @@ def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
         step * (hessian @ step[..., None])[..., 0]).sum(-1)
     return step, {"predicted_energy_change": predicted, "lambda": lam,
                   "step_norm": torch.linalg.vector_norm(step, dim=-1)}
+
+
+def _prfo_step_components(eigvals, g_t, max_mask, valid, alpha):
+    """Partitioned-RFO step in the eigenbasis: the `max_mask` modes are
+    maximized (shift above their poles), the rest minimized (shift below).
+    eigvals, g_t, masks (B, D); alpha (B,) or a float. The maximization
+    shift is the rightmost root of lam - sum g2/(lam - poles), which is
+    -leftmost(-poles); both roots come from one stacked bisection.
+    Returns (step_t, lam_min, lam_max)."""
+    if isinstance(alpha, torch.Tensor):
+        alpha = alpha[..., None]
+    poles = eigvals / alpha
+    gt = g_t / alpha
+    g2 = gt * gt
+    roots = _leftmost_secular_root(
+        torch.stack([-poles, poles]), torch.stack([g2, g2]),
+        torch.stack([valid & max_mask, valid & ~max_mask]))
+    lam_max, lam_min = -roots[0], roots[1]
+
+    def safe(d):
+        return torch.where(d.abs() > 1e-20, d, torch.where(
+            d >= 0, 1e-20, -1e-20).to(d.dtype))
+
+    step_max = -gt / safe(poles - lam_max[..., None])
+    step_min = -gt / safe(poles - lam_min[..., None])
+    step_t = torch.where(valid, torch.where(max_mask, step_max, step_min),
+                         0.0)
+    return step_t, lam_min, lam_max
+
+
+def rs_prfo_step(gradient, hessian, trust_radius, saddle_order=1,
+                 alpha0=1.0, alpha_max=1000.0, n_alpha_iter=40,
+                 follow_vector=None, eigh_impl="xla"):
+    """Restricted-step partitioned RFO for transition states, per structure
+    of a batch: maximize along the `saddle_order` lowest modes, minimize
+    along the rest. gradient (B, D), hessian (B, D, D), trust_radius (B,).
+
+    `follow_vector` (B, D): mode following -- the maximized mode is the
+    eigenvector with the largest |overlap| with it; the chosen eigenvector,
+    sign-aligned to it, is aux["followed_mode"]. A row whose unrestricted
+    step exceeds its trust radius takes the alpha bisection's step
+    (`n_alpha_iter` halvings of log10 alpha in [-6, log10 alpha_max]); the
+    bisection runs for every row and a select keeps it where needed.
+    `eigh_impl` as in `_eigh`, with the RS-RFO sweep rule
+    (`rfo_extra_sweeps`)."""
+    b, dim = gradient.shape
+    dtype = hessian.dtype
+    eye = torch.eye(dim, dtype=dtype, device=hessian.device)
+    sym = 0.5 * (hessian + hessian.mT)
+    bad = ~torch.isfinite(sym).all(-1).all(-1)
+    d, v = _eigh(torch.where(bad[:, None, None], eye, sym), eigh_impl,
+                 rfo_extra_sweeps(dtype))
+    bad = bad | ~(torch.isfinite(d).all(-1) & torch.isfinite(v).all((-2, -1)))
+    d = torch.where(bad[:, None], 1.0, d)
+    v = torch.where(bad[:, None, None], eye, v)
+    g_t = (v.mT @ gradient[..., None])[..., 0]
+
+    rows = torch.arange(b, device=gradient.device)
+    participate = d.abs() > _POLE_EPS
+    if follow_vector is None:
+        rank = torch.cumsum(participate.to(torch.int32), dim=-1)
+        max_mask = participate & (rank <= saddle_order)
+        followed = v[rows, :, max_mask.to(torch.int32).argmax(-1)]
+    else:
+        ovl = (v.mT @ follow_vector[..., None])[..., 0]
+        score = torch.where(participate, ovl.abs(), -math.inf)
+        idx = score.argmax(-1)
+        max_mask = torch.arange(dim, device=d.device) == idx[:, None]
+        followed = v[rows, :, idx] * torch.sign(ovl[rows, idx])[:, None]
+    valid = d.abs() >= SMALL_EIGVAL_THRESH
+
+    step0, lam_min0, lam_max0 = _prfo_step_components(d, g_t, max_mask,
+                                                      valid, alpha0)
+    norm0 = torch.linalg.vector_norm(step0, dim=-1)
+
+    lo = torch.full((b,), math.log10(1e-6), dtype=dtype, device=d.device)
+    hi = torch.full((b,), math.log10(alpha_max), dtype=dtype,
+                    device=d.device)
+    for _ in range(n_alpha_iter):
+        mid = 0.5 * (lo + hi)
+        s, _, _ = _prfo_step_components(d, g_t, max_mask, valid, 10.0 ** mid)
+        too_big = torch.linalg.vector_norm(s, dim=-1) > trust_radius
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    s, lmin, lmax = _prfo_step_components(d, g_t, max_mask, valid,
+                                          10.0 ** (0.5 * (lo + hi)))
+    sn = torch.linalg.vector_norm(s, dim=-1)
+    s = torch.where((sn > trust_radius)[:, None],
+                    s * (trust_radius / sn.clamp(min=1e-30))[:, None], s)
+    restrict = norm0 > trust_radius
+    step_t = torch.where(restrict[:, None], s, step0)
+    lam_min = torch.where(restrict, lmin, lam_min0)
+    lam_max = torch.where(restrict, lmax, lam_max0)
+
+    step = (v @ step_t[..., None])[..., 0]
+    finite = torch.isfinite(step).all(-1)
+    sd = -gradient
+    sd_n = torch.linalg.vector_norm(sd, dim=-1)
+    sd = torch.where((sd_n > trust_radius)[:, None],
+                     sd * (trust_radius / sd_n.clamp(min=1e-30))[:, None], sd)
+    step = torch.where(finite[:, None], step, sd)
+    predicted = (gradient * step).sum(-1) + 0.5 * (
+        step * (hessian @ step[..., None])[..., 0]).sum(-1)
+    return step, {"predicted_energy_change": predicted,
+                  "lambda_min": lam_min, "lambda_max": lam_max,
+                  "step_norm": torch.linalg.vector_norm(step, dim=-1),
+                  "followed_mode": followed}
+
+
+def rfo_classic_step(gradient, hessian, mode="min"):
+    """Unrestricted classic RFO step from the augmented Hessian
+    [[H, g], [g^T, 0]] (B, D+1, D+1): x[:-1]/x[-1] of the lowest ("min") or
+    highest ("max") eigenvector."""
+    b, n = gradient.shape
+    aug = hessian.new_zeros((b, n + 1, n + 1))
+    aug[:, :n, :n] = 0.5 * (hessian + hessian.mT)
+    aug[:, :n, n] = gradient
+    aug[:, n, :n] = gradient
+    _, u = torch.linalg.eigh(aug)
+    vec = u[..., 0] if mode == "min" else u[..., n]
+    denom = vec[:, n]
+    safe = torch.where(denom.abs() > 1e-12, denom, torch.where(
+        denom >= 0, 1e-12, -1e-12).to(denom.dtype))
+    return vec[:, :n] / safe[:, None]
 
 
 def update_trust_radius(trust_radius, actual_change, predicted_change,

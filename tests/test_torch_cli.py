@@ -97,3 +97,46 @@ def test_flagship_sweep_check_defaults_to_the_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="CUDA"):
         flagship.main([])
+
+
+_AR4 = ("4\nAr4\nAr 1.05 1.1 1.5\nAr 1.2 -1.6 -0.9\nAr -1.7 1.4 -1.2\n"
+        "Ar -1.3 -1.2 1.1\n")
+
+_FLAG_SETS = [
+    ["-opt", "fire", "rfo_fsb"],
+    ["-opt", "rfo_fsb", "-diis", "gediis"],
+    ["-opt", "cg", "-delta", "0.5"],
+    ["-fix", "1", "-pc", "bond", "2,3", "angle", "1,2,4"],
+    ["-pc", "fbond", "1,2", "3,4", "atoms_pair", "1,3"],
+    ["-gfix", "1,2"],
+    ["-sc", "3.6", "lt", "1,2", "-dc", "8"],
+    ["-opt", "rsprfo_bofill", "-order", "1", "-fc", "2", "-negeigval"],
+]
+
+
+@pytest.mark.parametrize("flags", _FLAG_SETS,
+                         ids=[" ".join(f) for f in _FLAG_SETS])
+def test_optmain_flags_match_the_reference(flags, tmp_path, capsys):
+    """optmain's engine flags on the reference's default backend (LJ), 4
+    steps of an Ar4 cluster: the same geometry and energies (1e-10 Ha,
+    1e-8 Angstrom) and the same exit status."""
+    inp = tmp_path / "ar4.xyz"
+    inp.write_text(_AR4)
+    args = [str(inp), "-ns", "4", *flags]
+    rc_ref = ref_main.main(["optmain", *args, "-out", str(tmp_path / "ref"),
+                            "-nosymm"])
+    capsys.readouterr()
+    rc = port_main.main(["optmain", *args, "-out", str(tmp_path / "port"),
+                         "--device", "cpu"])
+    assert rc == rc_ref
+    ref = (tmp_path / "ref" / "optimized.xyz").read_text().splitlines()
+    got = (tmp_path / "port" / "optimized.xyz").read_text().splitlines()
+    e_ref, e_got = (float(x[1].split("=")[1]) for x in (ref, got))
+    assert e_got == pytest.approx(e_ref, rel=0, abs=1e-10)
+    np.testing.assert_allclose(
+        np.array([ln.split()[1:] for ln in got[2:]], float),
+        np.array([ln.split()[1:] for ln in ref[2:]], float), rtol=0,
+        atol=1e-8)
+    np.testing.assert_allclose(
+        np.loadtxt(tmp_path / "port" / "energies.csv"),
+        np.loadtxt(tmp_path / "ref" / "energies.csv"), rtol=0, atol=1e-10)
