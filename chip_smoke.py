@@ -57,6 +57,28 @@ Phases, each printing one JSON line:
      3e-5 of |E| (f32; the relative tolerance of tests/test_jacobi_pallas.py).
      Each run prints its steps, ms per step (per structure and step in
      (b)) and K1 launches by shape.
+  7. reaction_paths: the reaction-path entry points through cli.main on
+     SQM2 f64, the band eigh through the kernel (multioptpy_tpu_torch/
+     reaction_paths.py). (a) nebmain -nimg 16 -aconv -ns 100 (CI-NEB, FIRE)
+     between the full flagship's IRC endpoints: finite energies, an
+     interior maximum, block launches at 16x72x72, and its first 2
+     iterations' band energies within 1e-8 Ha of the same NEBConfig run
+     through `neb` on the CPU. (b) On the aldol pair, relaxed on the card,
+     12 images and 20 iterations each: the 15 force laws with FIRE, the 10
+     other band clocks with CI-NEB, -idpp, -ci 5 5, -aneb 1 5, -pitr and
+     the 11 redistribution schemes every 5 iterations, each finite and
+     within 1e-8 Ha of its CPU rerun over the first 2 iterations (-aneb:
+     its band after 7, past the first growth to 14 images); then `gpneb` with 2 outer rounds, within the
+     bound its docstring states (1e-10 Ha, 1e-9 Bohr). (c) ircmain from
+     the full flagship's TS with lqa, euler, rk4, dvv and hpc, 15 steps
+     each: both branches below the TS energy and descending, the first 3
+     energies within 1e-8 Ha of a CPU rerun, and the TS Hessian's launch
+     at 108x72x72. (d) On the Diels-Alder reactant: every model-Hessian
+     kind and suffix against the CPU to 1e-10 relative, o1numhess and
+     o1numhess_full to 1e-8, and one optmain -sqm2 -modelhess run of 5
+     steps with finite energies. Every run prints ms per iteration (or
+     step) and its K1 launches by shape; kernel_check rows follow for every
+     other f64 batch the phase launched.
 Slice A must launch the warp variant and slice B the block variant. The
 kernel_check rows time the wrapper and the kernel launch alone (padded
 input, no sort or gather) as the median of 3 groups of CUDA-event timings
@@ -128,11 +150,76 @@ def median_ms(fn, groups=3):
     return float(np.median([cuda_ms(fn) for _ in range(groups)]))
 
 
-def phase_kernel_check(jc, card):
+def check_row(jc, gen, b, d, dtype, where, card, timed=True):
+    """One kernel_check row: the kernel against its plain version on a
+    random (b, d, d) batch at the sweeps of `where` (a main-path shape: its
+    `_eigh` count; the near-degenerate and boundary rows 12), timed with the
+    plain version, torch.linalg.eigh and the bound when `timed`. Emits the
+    row and raises when the kernel disagrees."""
     from multioptpy_tpu_torch.device import cuda_ms
     from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
                                                    rfo_extra_sweeps)
 
+    # clustered spectra converge slowly: the near-degenerate batch and
+    # the boundary rows (B = 12289 random matrices hold close pairs)
+    # get 12 sweeps; every main-path shape the main path's (`_eigh`:
+    # one more than its CPU count, an RS-RFO step more in f64)
+    sw = (12 if where in ("near-degenerate", "variant boundary")
+          else jacobi_sweeps_for(d) + (rfo_extra_sweeps(dtype)
+                                       if "RFO" in where else 1))
+    a = random_sym(gen, b, d, dtype, degenerate=(where == "near-degenerate"))
+    w, v = jc.jacobi_eigh_cuda(a, sw)
+    w_p, v_p = jc.jacobi_eigh_plain(a, sw)
+    torch.cuda.synchronize()
+    scale = max(1.0, a.abs().max().item())
+    tol_w, tol_r = ((2e-5, 3e-5) if dtype == torch.float32
+                    else (1e-11, 1e-11))
+    err_w = (w - w_p).abs().max().item()
+    rec = torch.einsum("bij,bj,bkj->bik", v, w, v)
+    err_r = (rec - a).abs().max().item()
+    eye = torch.eye(d, dtype=dtype, device="cuda")
+    err_o = (v.mT @ v - eye).abs().max().item()
+    row = {"batch": b, "d": d, "dtype": str(dtype).split(".")[-1],
+           "sweeps": sw, "where": where,
+           "variant": jc.launch_plan(b, d + d % 2, dtype).variant,
+           "eig_err_vs_plain": err_w,
+           "reconstruction_err": err_r, "orthonormality_err": err_o,
+           "scale": scale}
+    if dtype == torch.float32 and d > 72:
+        # f32 rounding of the algorithm itself passes 2e-5 / 3e-5 of
+        # max|a| at this D (the plain version's own reconstruction
+        # error is ~6e-5 of it at D = 168): the kernel is held to twice
+        # the plain version's own errors against f64 eigvalsh instead
+        w_ex = torch.linalg.eigvalsh(a.double())
+        rec_p = torch.einsum("bij,bj,bkj->bik", v_p, w_p, v_p)
+        row["eig_err_vs_f64"] = (w.double() - w_ex).abs().max().item()
+        row["plain_eig_err_vs_f64"] = (w_p.double()
+                                       - w_ex).abs().max().item()
+        row["plain_reconstruction_err"] = (rec_p - a).abs().max().item()
+        ok = (row["eig_err_vs_f64"] <= 2 * row["plain_eig_err_vs_f64"]
+              and err_r <= 2 * row["plain_reconstruction_err"]
+              and err_o <= tol_r * d)
+    else:
+        ok = (err_w <= tol_w * scale and err_r <= tol_r * scale
+              and err_o <= tol_r * d)
+    row["ok"] = ok
+    if timed:
+        row["ms"] = median_ms(lambda: jc.jacobi_eigh_cuda(a, sw))
+        a3 = jc.pad_to_even(a)[0].contiguous()
+        plan = jc.launch_plan(b, a3.shape[-1], dtype, jc._prepare(0, dtype))
+        row["kernel_only_ms"] = median_ms(lambda: jc.launch(a3, sw, plan))
+        row["plain_ms"] = cuda_ms(lambda: jc.jacobi_eigh_plain(a, sw),
+                                  reps=3)
+        row["library_ms"] = median_ms(lambda: torch.linalg.eigh(a))
+        row["bound_ms"], row["bound_by"] = bound_ms(b, d, sw, dtype)
+    emit({"phase": "kernel_check", **row, "card": card})
+    if not ok:
+        raise AssertionError(f"kernel disagrees with its plain version: "
+                             f"{row}")
+    return row
+
+
+def phase_kernel_check(jc, card):
     t0 = time.perf_counter()
     lib_path, log = jc.build()
     build_s = time.perf_counter() - t0
@@ -152,6 +239,8 @@ def phase_kernel_check(jc, card):
         (16, 72, torch.float64, "Diels-Alder NEB band of 16 images"),
         (2, 72, torch.float64, "Diels-Alder IRC branch-pair band"),
         (216, 72, torch.float64, "Diels-Alder IRC branch-pair Hessian"),
+        (12, 44, torch.float64, "aldol NEB band of 12 images"),
+        (18, 44, torch.float64, "aldol -aneb 1 5 band grown to 18 images"),
     ]
     extra = [(20, 9, dt, "odd D") for dt in (torch.float32, torch.float64)]
     extra += [(4, 27, dt, "odd D") for dt in (torch.float32, torch.float64)]
@@ -165,66 +254,9 @@ def phase_kernel_check(jc, card):
     extra += [(12289, d, dt, "variant boundary")
               for d, dt in ((2, torch.float64), (30, torch.float64),
                             (32, torch.float32), (34, torch.float64))]
-    rows = []
-    for b, d, dtype, where in cases + extra:
-        # clustered spectra converge slowly: the near-degenerate batch and
-        # the boundary rows (B = 12289 random matrices hold close pairs)
-        # get 12 sweeps; every main-path shape the main path's (`_eigh`:
-        # one more than its CPU count, an RS-RFO step more in f64)
-        sw = (12 if where in ("near-degenerate", "variant boundary")
-              else jacobi_sweeps_for(d) + (rfo_extra_sweeps(dtype)
-                                           if "RFO" in where else 1))
-        a = random_sym(gen, b, d, dtype, degenerate=(where == "near-degenerate"))
-        w, v = jc.jacobi_eigh_cuda(a, sw)
-        w_p, v_p = jc.jacobi_eigh_plain(a, sw)
-        torch.cuda.synchronize()
-        scale = max(1.0, a.abs().max().item())
-        tol_w, tol_r = ((2e-5, 3e-5) if dtype == torch.float32
-                        else (1e-11, 1e-11))
-        err_w = (w - w_p).abs().max().item()
-        rec = torch.einsum("bij,bj,bkj->bik", v, w, v)
-        err_r = (rec - a).abs().max().item()
-        eye = torch.eye(d, dtype=dtype, device="cuda")
-        err_o = (v.mT @ v - eye).abs().max().item()
-        row = {"batch": b, "d": d, "dtype": str(dtype).split(".")[-1],
-               "sweeps": sw, "where": where,
-               "variant": jc.launch_plan(b, d + d % 2, dtype).variant,
-               "eig_err_vs_plain": err_w,
-               "reconstruction_err": err_r, "orthonormality_err": err_o,
-               "scale": scale}
-        if dtype == torch.float32 and d > 72:
-            # f32 rounding of the algorithm itself passes 2e-5 / 3e-5 of
-            # max|a| at this D (the plain version's own reconstruction
-            # error is ~6e-5 of it at D = 168): the kernel is held to twice
-            # the plain version's own errors against f64 eigvalsh instead
-            w_ex = torch.linalg.eigvalsh(a.double())
-            rec_p = torch.einsum("bij,bj,bkj->bik", v_p, w_p, v_p)
-            row["eig_err_vs_f64"] = (w.double() - w_ex).abs().max().item()
-            row["plain_eig_err_vs_f64"] = (w_p.double()
-                                           - w_ex).abs().max().item()
-            row["plain_reconstruction_err"] = (rec_p - a).abs().max().item()
-            ok = (row["eig_err_vs_f64"] <= 2 * row["plain_eig_err_vs_f64"]
-                  and err_r <= 2 * row["plain_reconstruction_err"]
-                  and err_o <= tol_r * d)
-        else:
-            ok = (err_w <= tol_w * scale and err_r <= tol_r * scale
-                  and err_o <= tol_r * d)
-        row["ok"] = ok
-        if (b, d, dtype, where) in cases:
-            row["ms"] = median_ms(lambda: jc.jacobi_eigh_cuda(a, sw))
-            a3 = jc.pad_to_even(a)[0].contiguous()
-            plan = jc.launch_plan(b, a3.shape[-1], dtype,
-                                  jc._prepare(0, dtype))
-            row["kernel_only_ms"] = median_ms(lambda: jc.launch(a3, sw, plan))
-            row["plain_ms"] = cuda_ms(lambda: jc.jacobi_eigh_plain(a, sw),
-                                      reps=3)
-            row["library_ms"] = median_ms(lambda: torch.linalg.eigh(a))
-            row["bound_ms"], row["bound_by"] = bound_ms(b, d, sw, dtype)
-        emit({"phase": "kernel_check", **row, "card": card})
-        if not ok:
-            raise AssertionError(f"kernel disagrees with its plain version: "
-                                 f"{row}")
-        rows.append(row)
+    rows = [check_row(jc, gen, b, d, dtype, where, card,
+                      timed=(b, d, dtype, where) in cases)
+            for b, d, dtype, where in cases + extra]
 
     # seeded_eigh (ops/eigh64): f32 seed through the kernel, f64 polish
     from multioptpy_tpu_torch.ops.eigh64 import seeded_eigh
@@ -644,6 +676,124 @@ def phase_methods(jc, card, saddle_start, n_steps=20):
     return totals
 
 
+def phase_reaction_paths(jc, card, full_res, rows):
+    """nebmain and ircmain on the card through cli.main (SQM2 f64, the
+    band eigh through K1), GPNEB and the Hessian tools, each against a CPU
+    rerun through the kernel's algorithm (multioptpy_tpu_torch/
+    reaction_paths.py). Appends kernel_check rows for any aldol band shape
+    the runs launched that kernel_check did not hold."""
+    from multioptpy_tpu_torch import reaction_paths as rp
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+
+    torch.set_num_threads(8)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(jc.VARIANTS, 0)
+    seen_shapes = set()
+
+    def take():
+        """Launches since the last reset (by variant, by shape); resets."""
+        v = dict(jc.jacobi_eigh_cuda.variant_launches)
+        shapes = dict(jc.jacobi_eigh_cuda.shape_launches)
+        for k in totals:
+            totals[k] += v[k]
+        seen_shapes.update(shapes)
+        by_shape = shape_counts(jc)
+        jc.reset_launches()
+        return v, by_shape
+
+    def gate(ok, what, out):
+        if not ok:
+            raise AssertionError(f"reaction_paths {what}: {out}")
+
+    reactant, z_da = diels_alder_reactant()
+    # (a) full width: the flagship's IRC endpoints, 16 images, 100 steps
+    jc.reset_launches()
+    a = rp.full_width_neb(full_res.reactant_coords, full_res.product_coords,
+                          z_da, "cuda")
+    v, by_shape = take()
+    out = {"phase": "reaction_paths", "part": "a_full_width",
+           "run": "nebmain -sqm2 -nimg 16 -aconv -ns 100", **a,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    emit(out)
+    gate(a["finite"] and a["interior_maximum"], "(a) band", out)
+    gate(a["max_abs_e_diff_cpu_vs_card"] <= 1e-8, "(a) card vs CPU", out)
+    gate(by_shape.get("16x72x72 f64 sweeps=9", 0) > 0 and v["block"] > 0,
+         "(a) no block launch at 16x72x72", out)
+
+    # (b) breadth on the relaxed aldol pair, 12 images, 20 iterations
+    t0 = time.perf_counter()
+    pair = rp.relaxed_aldol_pair("cuda")
+    v, by_shape = take()
+    emit({"phase": "reaction_paths", "part": "b_relax_aldol_pair",
+          "seconds": time.perf_counter() - t0, "kernel_launches": v,
+          "k1_launches_by_shape": by_shape, "card": card})
+    for run in rp.aldol_runs():
+        b = rp.aldol_neb(run, pair, "cuda")
+        v, by_shape = take()
+        out = {"phase": "reaction_paths", "part": "b_aldol", **b,
+               "kernel_launches": v, "k1_launches_by_shape": by_shape,
+               "card": card}
+        emit(out)
+        gate(b["finite"] and b["max_abs_e_diff_cpu_vs_card"] <= 1e-8,
+             f"(b) {run[0]}", out)
+    g = rp.gpneb_run(pair, "cuda")
+    v, by_shape = take()
+    out = {"phase": "reaction_paths", "part": "b_aldol", **g,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    emit(out)
+    # the bound of drivers/gpneb.py's docstring (the GP solve's
+    # conditioning)
+    gate(g["finite"] and g["max_abs_e_diff_cpu_vs_card"] <= 1e-10
+         and g["max_abs_path_diff_cpu_vs_card"] <= 1e-9, "(b) gpneb", out)
+
+    # (c) ircmain from the flagship's TS, 15 steps of each integrator
+    for row in rp.irc_runs(full_res.ts_coords, z_da, "cuda",
+                           launch_counter=take):
+        v, by_shape = row.pop("k1_launches_by_shape")
+        out = {"phase": "reaction_paths", "part": "c_irc",
+               "run": f"ircmain -sqm2 -im {row['method']} -ns 15", **row,
+               "kernel_launches": v, "k1_launches_by_shape": by_shape,
+               "card": card}
+        emit(out)
+        gate(row["finite"] and row["descends"], f"(c) {row['method']}", out)
+        gate(row["max_abs_e_diff_cpu_vs_card"] <= 1e-8,
+             f"(c) {row['method']} card vs CPU", out)
+        gate(by_shape.get("108x72x72 f64 sweeps=9", 0) > 0,
+             f"(c) {row['method']}: no K1 launch at 108x72x72", out)
+
+    # (d) Hessian tools on the Diels-Alder reactant
+    d = rp.hessian_tools(reactant, z_da, "cuda")
+    v, by_shape = take()
+    out = {"phase": "reaction_paths", "part": "d_hessian_tools", **d,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    emit(out)
+    worst = max(d["model_kinds"].values())
+    gate(worst <= 1e-10, "(d) model kinds card vs CPU", out)
+    # o1numhess: a few hundred gradients' rounding through the secant
+    # updates and the least-squares reconstruction
+    gate(d["o1numhess_rel_diff"] <= 1e-8
+         and d["o1numhess_full_rel_diff"] <= 1e-8, "(d) o1numhess", out)
+    gate(d["optmain_modelhess_finite"] and d["optmain_modelhess_rc"] in (0, 1),
+         "(d) optmain -modelhess", out)
+
+    # f64 batches the runs launched beyond the kernel_check rows (the aldol
+    # relaxation's gradient and Hessian, the -aneb band as it grows,
+    # O1NumHess's displaced gradients)
+    held = {(r["batch"], r["d"]) for r in rows}
+    gen = torch.Generator().manual_seed(2)
+    for b, dd in sorted({(b, dd) for b, dd, tag, _ in seen_shapes
+                         if tag == "f64" and (b, dd) not in held}):
+        rows.append(check_row(jc, gen, b, dd, torch.float64,
+                              f"batch of {b} in reaction_paths", card))
+    emit({"phase": "reaction_paths_done",
+          "seconds": time.perf_counter() - t_phase,
+          "kernel_launches": totals, "card": card})
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -662,7 +812,8 @@ def main():
     full_launches, full_res = phase_autots(jc, card, full=True)
     from multioptpy_tpu_torch.flagship import saddle_start
     main_path += [full_launches,
-                  phase_methods(jc, card, saddle_start(full_res))]
+                  phase_methods(jc, card, saddle_start(full_res)),
+                  phase_reaction_paths(jc, card, full_res, rows)]
 
     kernels = []
     for variant in jc.VARIANTS:

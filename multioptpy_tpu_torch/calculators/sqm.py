@@ -466,10 +466,13 @@ def _overlap_full(coords, prm, nob):
 
 
 def _sqm_eigh(a, impl):
-    """Band eigensolver dispatch: "pallas" or "kernel" (steppers.rfo._eigh:
-    the Jacobi kernel on CUDA; on the CPU the round-robin Jacobi, or the
+    """Band eigensolver dispatch: "auto" ("pallas" on a CUDA tensor, else
+    torch.linalg.eigh) | "pallas" or "kernel" (steppers.rfo._eigh: the
+    Jacobi kernel on CUDA; on the CPU the round-robin Jacobi, or the
     kernel's plain version) | "seeded" (ops/eigh64.seeded_eigh) | a callable
     (steppers.rfo._eigh) | anything else torch.linalg.eigh."""
+    if impl == "auto":
+        impl = "pallas" if a.is_cuda else "xla"
     if impl == "seeded":
         return seeded_eigh(a)
     if callable(impl) or impl in ("pallas", "kernel"):
@@ -674,10 +677,12 @@ class SQM(Calculator):
         self.k_sp_heavy = float(kw.pop("k_sp_heavy", self.k_sp))
         self.k_en = float(kw.pop("k_en", 0.0))
         self.srb_k_heavy = kw.pop("srb_k_heavy", None)
-        # band eigensolver: "xla" (torch.linalg.eigh) | "pallas" or
-        # "kernel" (the Jacobi kernel; see steppers.rfo._eigh) | "seeded"
-        # | a callable (h, sweeps) -> (w, v), as steppers.rfo._eigh takes
-        impl = kw.pop("eigh_impl", "xla")
+        # band eigensolver: "auto" (the Jacobi kernel on the card,
+        # torch.linalg.eigh on the CPU) | "xla" (torch.linalg.eigh) |
+        # "pallas" or "kernel" (the Jacobi kernel; see steppers.rfo._eigh)
+        # | "seeded" | a callable (h, sweeps) -> (w, v), as
+        # steppers.rfo._eigh takes
+        impl = kw.pop("eigh_impl", "auto")
         self.eigh_impl = impl if callable(impl) else str(impl)
         self.dispersion = str(kw.pop("dispersion", "d2"))
         self.use_d = bool(kw.pop("use_d", False))

@@ -9,8 +9,8 @@ vector q(x) is one vectorized function of the geometry, so B = dq/dx comes
 from `torch.func.jacfwd` per member of the batch, as the reference's
 `jax.jacfwd`, and the curvature term from `torch.func.hessian`. The
 eigendecompositions are `eigh_fast` (`torch.linalg.eigh`), the reference's
-CPU branch. `cartesian_to_z_matrix` and `local_force_constants` are not
-ported (ROADMAP Queue 1 item 10).
+CPU branch. `cartesian_to_z_matrix` and `local_force_constants` take one
+structure, as the reference's.
 
 Primitive index arrays are static per molecule (numpy, 0-based).
 """
@@ -336,3 +336,56 @@ def auto_internals(coords_np, z, **kw):
                                linear_bends=linear,
                                linear_axes=linear_bend_axes(coords_np,
                                                             linear))
+
+
+def cartesian_to_z_matrix(coords):
+    """Chain Z-matrix values [r_12, r_23, th_123, (r_i, th, phi)...] of one
+    structure (N, 3): distances in Bohr, angles in degrees, vectorized over
+    the chain."""
+    c = torch.as_tensor(coords)
+    n = c.shape[0]
+    if n < 2:
+        return c.new_zeros((0,))
+    out = [(torch.linalg.vector_norm(c[1] - c[0]) + 1e-15)[None]]
+    if n >= 3:
+        r13 = torch.linalg.vector_norm(c[2] - c[0]) + 1e-15
+        cosv = ((c[1] - c[0]) @ (c[2] - c[0])) / (out[0][0] * r13)
+        out.append((torch.linalg.vector_norm(c[2] - c[1]) + 1e-15)[None])
+        out.append(torch.rad2deg(torch.arccos(torch.clamp(cosv, -1.0,
+                                                          1.0)))[None])
+    if n >= 4:
+        a, b, d, e = c[:-3], c[1:-2], c[2:-1], c[3:]
+        r = torch.linalg.vector_norm(e - d, dim=1) + 1e-15
+        r_bd = torch.linalg.vector_norm(d - b, dim=1) + 1e-15
+        cos_th = ((d - b) * (e - d)).sum(1) / (r_bd * r)
+        th = torch.rad2deg(torch.arccos(torch.clamp(cos_th, -1.0, 1.0)))
+        n1 = torch.linalg.cross(b - a, d - b)
+        n2 = torch.linalg.cross(d - b, e - d)
+        n1 = n1 / (torch.linalg.vector_norm(n1, dim=1, keepdim=True) + 1e-15)
+        n2 = n2 / (torch.linalg.vector_norm(n2, dim=1, keepdim=True) + 1e-15)
+        cos_p = torch.clamp((n1 * n2).sum(1), -1.0, 1.0)
+        sign = torch.sign((torch.linalg.cross(n1, n2) * (d - b)).sum(1))
+        phi = torch.rad2deg(torch.arccos(cos_p)) * torch.where(
+            sign < 0, -1.0, torch.ones_like(cos_p))
+        out.append(torch.stack([r, th, phi], dim=1).reshape(-1))
+    return torch.cat(out)
+
+
+def local_force_constants(cart_hess, b_matrix, method="compliance"):
+    """Per-primitive local force constants from a Cartesian Hessian (3N,3N)
+    and a Wilson matrix (Q, 3N).
+
+    "compliance": k_q = 1 / (B H^+ B^T)_qq (Brandhorst & Grunenberg, Chem.
+    Soc. Rev. 37 (2008) 1558), with the pseudo-inverse; valid anywhere.
+    "projection": B^+T H B^+ through the G-inverse (stationary points
+    only). Returns the (Q,) diagonal or the full (Q, Q) matrix."""
+    h = torch.as_tensor(cart_hess)
+    b = torch.as_tensor(b_matrix)
+    if method == "compliance":
+        h_pinv = torch.linalg.pinv(0.5 * (h + h.mT), rtol=1e-8)
+        return 1.0 / torch.diagonal(b @ h_pinv @ b.mT)
+    if method == "projection":
+        g_inv = torch.linalg.pinv(b @ b.mT, rtol=1e-10)
+        b_plus = g_inv @ b
+        return b_plus @ h @ b_plus.mT
+    raise ValueError("method must be 'compliance' or 'projection'")

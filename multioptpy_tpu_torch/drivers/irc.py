@@ -1,14 +1,15 @@
 """IRC: intrinsic reaction coordinate following in mass-weighted coordinates.
 
-Counterpart of `multioptpy_tpu/drivers/irc.py` for the LQA integrator
+Counterpart of `multioptpy_tpu/drivers/irc.py` for its integrators: LQA
 (Page & McIver: the mass-weighted equations of motion integrated exactly on
 the local quadratic surface, the step length matched by a fixed count of
-doublings and bisections on t). The forward and backward branches run as
-one batch of 2, so each LQA step's Hessians are one calculator call over
-both branches (2 x 6N displaced structures for SQM/SQM2).
+doublings and bisections on t), Euler, RK4, DVV and the Hessian predictor-
+corrector HPC. The forward and backward branches run as one batch of 2, so
+each step's gradients and Hessians are one calculator call over both
+branches (2 x 6N displaced structures for an SQM/SQM2 Hessian).
 
-Euler, RK4, DVV, HPC, `meta_irc` and `modekill` arrive with ROADMAP Queue 1
-item 12. Coordinates are mass-weighted as q = sqrt(m) x (amu^1/2 Bohr).
+`meta_irc` and `modekill` arrive with ROADMAP Queue 1 item 12. Coordinates
+are mass-weighted as q = sqrt(m) x (amu^1/2 Bohr).
 """
 
 import dataclasses
@@ -78,20 +79,29 @@ class IRCConfig:
     init_displacement: float = 0.1
 
 
+IRC_METHODS = ("lqa", "euler", "rk4", "dvv", "hpc")
+
+
+def _unit(v):
+    """Rows of (B, D) over their norms (+1e-30)."""
+    return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-30)
+
+
 def make_irc_step(calc, z, config=IRCConfig(), bias_engine=None):
-    """coords (B,N,3) -> (coords', energy (B,), gradient (B,N,3)): one LQA
-    step of each member, energy and gradient at the input coords."""
-    if config.method != "lqa":
-        raise NotImplementedError(
-            f"IRC method '{config.method}': this port runs 'lqa'; the other "
-            "integrators arrive with ROADMAP Queue 1 item 12")
+    """coords (B,N,3) -> (coords', energy (B,), gradient (B,N,3)): one step
+    of `config.method` for each member, energy and gradient at the input
+    coords. "euler" and "dvv" step ds along -g_mw/|g_mw| (dvv resets its
+    velocity to the gradient direction every step); "rk4" integrates
+    dq/ds = -g_mw/|g_mw| with four more gradient batches; "lqa" solves the
+    local quadratic exactly (Page-McIver); "hpc" corrects the LQA step with
+    a second LQA at the predicted point and averages the two (Hratchian &
+    Schlegel, JCP 120 (2004) 9918), rescaled to ds."""
+    method = config.method
+    if method not in IRC_METHODS:
+        raise ValueError(f"unknown IRC method '{method}'")
     ds = config.step_size
 
-    def step(coords):
-        b = coords.shape[0]
-        sm, _ = _sqrt_masses(z, coords)
-        e, g = hosteval.energy_and_gradient(calc, coords, z, bias_engine)
-        g_mw = g.reshape(b, -1) / sm
+    def lqa_dq(coords, g_mw, sm):
         # exact integration of dq/dt = -(g + H dq) on the local quadratic,
         # on the TR/rot-projected mass-weighted Hessian (deflated eigh)
         h = hosteval.hessian(calc, coords, z, bias_engine)
@@ -121,7 +131,38 @@ def make_irc_step(calc, z, config=IRCConfig(), bias_engine=None):
             too_small = norm_at(mid) < ds
             lo, hi = (torch.where(too_small, mid, lo),
                       torch.where(too_small, hi, mid))
-        dq = (v @ dq_of_t(0.5 * (lo + hi))[..., None])[..., 0]
+        return (v @ dq_of_t(0.5 * (lo + hi))[..., None])[..., 0]
+
+    def step(coords):
+        b = coords.shape[0]
+        sm, _ = _sqrt_masses(z, coords)
+        e, g = hosteval.energy_and_gradient(calc, coords, z, bias_engine)
+        g_mw = g.reshape(b, -1) / sm
+        if method in ("euler", "dvv"):
+            dq = -ds * _unit(g_mw)
+        elif method == "rk4":
+            def f(q_mw):
+                x = (q_mw / sm).reshape(coords.shape)
+                _, gg = hosteval.energy_and_gradient(calc, x, z, bias_engine)
+                return -_unit(gg.reshape(b, -1) / sm)
+
+            q0 = coords.reshape(b, -1) * sm
+            k1 = f(q0)
+            k2 = f(q0 + 0.5 * ds * k1)
+            k3 = f(q0 + 0.5 * ds * k2)
+            k4 = f(q0 + ds * k3)
+            dq = ds * (k1 + 2 * k2 + 2 * k3 + k4) / 6.0
+        elif method == "lqa":
+            dq = lqa_dq(coords, g_mw, sm)
+        else:  # hpc
+            dq_pred = lqa_dq(coords, g_mw, sm)
+            x_pred = coords + (dq_pred / sm).reshape(coords.shape)
+            _, g_pred = hosteval.energy_and_gradient(calc, x_pred, z,
+                                                     bias_engine)
+            dq_corr = lqa_dq(x_pred, g_pred.reshape(b, -1) / sm, sm)
+            dq = 0.5 * (dq_pred + dq_corr)
+            dq = dq * (ds / (torch.linalg.vector_norm(dq, dim=-1,
+                                                      keepdim=True) + 1e-30))
         return coords + (dq / sm).reshape(coords.shape), e, g
 
     return step

@@ -157,7 +157,7 @@ def saddle_sweep_residuals(start, device=None, nsteps=20):
 
     dev = resolve_device(device)
     _, z = diels_alder_reactant()
-    calc = SQM2(device=dev)
+    calc = SQM2(eigh_impl="xla", device=dev)
     out = {}
     for name, kw in SADDLE_RUNS.items():
         kept = []

@@ -1,17 +1,19 @@
 """Dispersion pieces on batched coordinates: D3 coordination numbers and
-the charge-scaled D4 two-body energy (the SQM calculators), and the static
-D3(BJ) energy/gradient/Hessian, the D4 charge estimate and the D4 pair
-force constant (the lindh2007d3 model Hessians, `hessian/model.py`).
+the charge-scaled D4 two-body energy (the SQM calculators), and the D2,
+D3(BJ) (static, or with coordination-number-scaled C6) and D4 energies
+with their exact autodiff Hessians, the D4 charge estimate and the D4 pair
+force constant (the dispersion-corrected model Hessians,
+`hessian/model.py`).
 
-Counterpart of the parts of `multioptpy_tpu/hessian/dispersion.py` that
-`calculators/sqm.py` and `hessian/model.py` reach. The D2 C6 table feeds
-the D3 and D4 pair tables.
+Counterpart of `multioptpy_tpu/hessian/dispersion.py`. The D2 C6 table
+feeds the D3 and D4 pair tables.
 """
 
 import numpy as np
 import torch
 
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1, UFF_VDW_R
+from multioptpy_tpu_torch.units import ANGSTROM2BOHR as _ANG2BOHR
 
 # Z-indexed (0..86): Grimme D2 C6 (J nm^6 / mol) and vdW radii (Angstrom)
 D2_C6_JNM6 = np.array([
@@ -70,6 +72,19 @@ D3_R4R2[64:71] = [15.6013, 19.2362, 17.4717, 17.8321, 17.4237, 17.1954,
 D3_R4R2[71:87] = [14.5716, 15.8758, 13.8989, 12.4834, 11.4421, 10.2671,
                   8.3549, 7.8496, 7.3278, 7.4820, 13.5124, 11.6554,
                   10.0959, 9.7340, 8.8584, 8.0125]
+
+
+# typical-valency reference coordination numbers, Z-indexed (default 4)
+_D3_REF_CN = np.full(87, 4.0)
+for _z, _cn in {1: 1, 2: 0, 3: 4, 4: 4, 5: 3, 6: 4, 7: 3, 8: 2, 9: 1,
+                10: 0, 11: 6, 12: 6, 13: 6, 14: 4, 15: 5, 16: 6, 17: 1,
+                18: 0, 19: 8, 20: 6, 21: 12, 22: 12, 23: 12, 24: 6,
+                25: 6, 26: 6, 27: 6, 28: 4, 29: 4, 30: 4, 31: 4, 32: 4,
+                33: 3, 34: 2, 35: 1, 36: 0, 37: 8, 38: 6, 39: 12,
+                40: 12, 41: 12, 42: 6, 43: 6, 44: 6, 45: 6, 46: 4,
+                47: 4, 48: 4, 49: 6, 50: 4, 51: 3, 52: 2, 53: 1,
+                54: 0}.items():
+    _D3_REF_CN[_z] = float(_cn)
 
 
 # tad-dftd3 r4/r2 ratios, Z=1..56 (ref: Parameters/d4.py:31-57; default 10)
@@ -154,10 +169,13 @@ def d4_pair_energy(r, c6, c8, r0, q_scaling=1.0,
     return e6 + e8
 
 
-def d4_energy(coords, z, charges, ga=D4_GA, **kw):
+def d4_energy(coords, z, charges=None, ga=D4_GA, **kw):
     """Two-body D4 dispersion (B,) with Gaussian charge scaling
-    exp(-ga (q_i^2 + q_j^2)); `charges` (B,N) are the caller's EEQ charges."""
+    exp(-ga (q_i^2 + q_j^2)); `charges` (B,N) are the caller's (EEQ)
+    charges, by default the electronegativity estimate `d4_charges`."""
     n = coords.shape[-2]
+    if charges is None:
+        charges = d4_charges(coords, z)
     kind = dict(dtype=coords.dtype, device=coords.device)
     c6_ij, c8_ij, r0_ij = (torch.as_tensor(t, **kind)
                            for t in d4_pair_tables(z))
@@ -171,27 +189,62 @@ def d4_energy(coords, z, charges, ga=D4_GA, **kw):
 
 def d3_energy(coords, z, s6=1.0, s8=0.7875, a1=0.4289, a2=4.4407,
               dynamic_cn=False):
-    """D3(BJ)-style dispersion (B,) in the static D2-C6 form the lindh2007d3
-    model Hessians use: C6 from the D2 table (sqrt combination), C8 = 3 C6
-    sqrt(r4r2_i r4r2_j), Becke-Johnson damping with R0 = sqrt(C8/C6)."""
-    if dynamic_cn:
-        raise NotImplementedError(
-            "the coordination-number-scaled D3 (fischerd3) arrives with the "
-            "other model Hessians, ROADMAP Queue 1 item 10")
+    """D3(BJ)-style dispersion (B,) with the D2 C6 values (sqrt
+    combination), C8 = 3 C6 sqrt(r4r2_i r4r2_j) and Becke-Johnson damping
+    with R0 = sqrt(C8/C6). `dynamic_cn` scales each C6 by its coordination-
+    number deviation from typical valency, clip(1 - 0.05 (CN - CN_ref),
+    0.75, 1.25) (the fischerd3 flavour); without it this is the static form
+    of fischerd3old and the lindh2007d3 family."""
     z = np.asarray(z)
     n = len(z)
     kind = dict(dtype=coords.dtype, device=coords.device)
-    c6 = torch.as_tensor(_C6_AU[z], **kind)
+    c6 = torch.as_tensor(_C6_AU[z], **kind).expand(coords.shape[0], n)
+    if dynamic_cn:
+        cn = d3_coordination_numbers(coords, z)
+        ref_cn = torch.as_tensor(_D3_REF_CN[z], **kind)
+        c6 = c6 * torch.clamp(1.0 - 0.05 * (cn - ref_cn), 0.75, 1.25)
     r4r2 = torch.as_tensor(D3_R4R2[z], **kind)
     mask = torch.ones(n, n, dtype=torch.bool, device=coords.device).triu(1)
     r = _distances(coords)
-    c6_ij = torch.sqrt(c6[:, None] * c6[None, :])
+    c6_ij = torch.sqrt(c6[:, :, None] * c6[:, None, :])
     c8_ij = 3.0 * c6_ij * torch.sqrt(r4r2[:, None] * r4r2[None, :])
     r0_ij = torch.sqrt(c8_ij / (c6_ij + 1e-300))
     bj = a1 * r0_ij + a2
     e6 = -s6 * c6_ij / (r ** 6 + bj ** 6)
     e8 = -s8 * c8_ij / (r ** 8 + bj ** 8)
     return torch.where(mask, e6 + e8, 0.0).sum((-2, -1))
+
+
+def d2_energy(coords, z, s6=1.2, damping=20.0):
+    """Grimme D2 dispersion (B,) (Hartree, coords in Bohr):
+    -s6 sum_{i<j} C6_ij / r^6 f_damp, f_damp = 1/(1+exp(-d(r/R0-1)))."""
+    z = np.asarray(z)
+    n = len(z)
+    kind = dict(dtype=coords.dtype, device=coords.device)
+    c6 = torch.as_tensor(_C6_AU[z], **kind)
+    r0 = torch.as_tensor(D2_VDW_ANG[z] * _ANG2BOHR, **kind)
+    mask = torch.ones(n, n, dtype=torch.bool, device=coords.device).triu(1)
+    r = _distances(coords)
+    c6_ij = torch.sqrt(c6[:, None] * c6[None, :])
+    r0_ij = r0[:, None] + r0[None, :]
+    f = 1.0 / (1.0 + torch.exp(-damping * (r / r0_ij - 1.0)))
+    return torch.where(mask, -s6 * c6_ij / r ** 6 * f, 0.0).sum((-2, -1))
+
+
+def _hessian_of(energy_fn, coords, z, **kw):
+    """(B, 3N, 3N) autodiff Hessians of energy_fn(coords (B,N,3), z)."""
+    b, n, _ = coords.shape
+
+    def one(x_flat):
+        return energy_fn(x_flat.reshape(1, n, 3), z, **kw)[0]
+
+    return torch.func.vmap(torch.func.hessian(one))(
+        coords.detach().reshape(b, 3 * n))
+
+
+def d2_hessian(coords, z, s6=1.2):
+    """(B, 3N, 3N) exact D2 Hessians by autodiff."""
+    return _hessian_of(d2_energy, coords, z, s6=s6)
 
 
 def d3_gradient(coords, z, **kw):
@@ -204,13 +257,7 @@ def d3_gradient(coords, z, **kw):
 
 def d3_hessian(coords, z, **kw):
     """(B, 3N, 3N) exact D3(BJ) Hessians by autodiff."""
-    b, n, _ = coords.shape
-
-    def one(x_flat):
-        return d3_energy(x_flat.reshape(1, n, 3), z, **kw)[0]
-
-    return torch.func.vmap(torch.func.hessian(one))(
-        coords.detach().reshape(b, 3 * n))
+    return _hessian_of(d3_energy, coords, z, **kw)
 
 
 def d4_charges(coords, z, bond_scale=1.3):
@@ -236,3 +283,9 @@ def d4_pair_force_const(r, c6, c8, r0, q_scaling=1.0, **kw):
     """-(e6 + e8): the pairwise force-constant term the D4-flavoured model
     Hessians add to long pairs."""
     return -d4_pair_energy(r, c6, c8, r0, q_scaling, **kw)
+
+
+def d4_hessian(coords, z, **kw):
+    """(B, 3N, 3N) exact charge-scaled D4 Hessians by autodiff (charges from
+    `d4_charges`)."""
+    return _hessian_of(d4_energy, coords, z, **kw)

@@ -13,6 +13,8 @@ import numpy as np
 from multioptpy_tpu_torch.units import ANGSTROM2BOHR
 
 __all__ = [
+    "aldol_adduct",
+    "aldol_reactant",
     "diels_alder_reactant",
     "s8_crown",
     "water_cluster",
@@ -88,6 +90,92 @@ def diels_alder_reactant(separation=3.2):
     coords = np.concatenate([diene, acro]) * ANGSTROM2BOHR
     z = np.array(diene_z + acro_z, dtype=np.int64)
     return coords, z
+
+
+def aldol_reactant(separation=3.2):
+    """Formaldehyde stacked over vinyl alcohol, the AutoTS test pair of the
+    JAX package (its AFIR pushes: 95 kJ/mol on atoms (1,5) and 50 kJ/mol on
+    (3,11), 1-indexed). 11 atoms, C/H/O, 3N = 33.
+
+    Returns (coords_bohr (11,3) float64, z (11,) int). Atom order matches
+    the reference fixture so its AFIR indices map 1:1:
+      0 C  formaldehyde carbon          (ref atom 1)
+      1 H  formaldehyde H
+      2 O  formaldehyde oxygen          (ref atom 3)
+      3 H  formaldehyde H
+      4 C  enol terminal =CH2 carbon    (ref atom 5, the nucleophile)
+      5 C  enol carbon bearing the OH
+      6 H  on C4
+      7 O  enol hydroxyl oxygen
+      8 H  on C5
+      9 H  on C4
+     10 H  hydroxyl hydrogen            (ref atom 11, transfers to O2)
+    The aldol addition forms C0-C4 and transfers H10 onto O2, giving
+    3-hydroxypropanal. Geometry is generated from standard bond
+    lengths/angles (a STARTING structure, not literature coordinates).
+    """
+    r_co_d, r_cc_d, r_co_s, r_ch, r_oh = 1.21, 1.33, 1.36, 1.09, 0.96
+
+    # --- formaldehyde in the upper z = +separation/2 plane --------------
+    zf = 0.5 * separation
+    c0 = np.array([0.0, 0.0, zf])
+    o2 = c0 + np.array([r_co_d, 0.0, 0.0])
+    h1 = c0 + r_ch * np.array([np.cos(np.radians(150.0)),
+                               np.sin(np.radians(150.0)), 0.0])
+    h3 = c0 + r_ch * np.array([np.cos(np.radians(210.0)),
+                               np.sin(np.radians(210.0)), 0.0])
+
+    # --- vinyl alcohol in the lower plane, C4 under C0, OH side under
+    # the carbonyl O so the 6-membered proton-transfer loop can close ---
+    zv = -0.5 * separation
+    c4 = np.array([0.0, 0.0, zv])
+    c5 = c4 + np.array([r_cc_d, 0.0, 0.0])
+    h6 = c4 + r_ch * np.array([np.cos(np.radians(120.0)),
+                               np.sin(np.radians(120.0)), 0.0])
+    h9 = c4 + r_ch * np.array([np.cos(np.radians(240.0)),
+                               np.sin(np.radians(240.0)), 0.0])
+    o7 = c5 + r_co_s * np.array([np.cos(np.radians(60.0)),
+                                 np.sin(np.radians(60.0)), 0.0])
+    h8 = c5 + r_ch * np.array([np.cos(np.radians(-60.0)),
+                               np.sin(np.radians(-60.0)), 0.0])
+    # hydroxyl H points up toward the carbonyl oxygen
+    d = o2 - o7
+    h10 = o7 + r_oh * d / np.linalg.norm(d)
+
+    coords = np.stack([c0, h1, o2, h3, c4, c5, h6, o7, h8, h9, h10])
+    z = np.array([6, 1, 8, 1, 6, 6, 1, 8, 1, 1, 1], dtype=np.int64)
+    return coords * ANGSTROM2BOHR, z
+
+
+def aldol_adduct():
+    """3-hydroxypropanal, the aldol addition product of `aldol_reactant`
+    (the basin the AFIR pushes drive toward). C0 becomes the carbinol
+    carbon (O2-H10 hydroxyl), C5 the aldehyde carbon (C5=O7).
+
+    Laid out in the SAME spatial frame as `aldol_reactant` (formaldehyde
+    moiety above, enol-derived chain below, C0-C4 bond along ~z, O2-H10
+    still hydrogen-bonded back to O7) so a basin-to-basin NEB between the
+    two fixtures interpolates cleanly — an independently-framed conformer
+    routes the interpolated path through atom clashes. Coordinates are a
+    rounded relaxation product of this framework's own AFIR push on the
+    reactant fixture (NOT literature values). Returns
+    (coords_bohr (11,3) float64, z (11,) int); relax before use.
+    """
+    coords = np.array([
+        [-0.19, 0.20, 0.70],    # C0 carbinol carbon
+        [-1.06, 0.80, 1.02],    # H1
+        [1.00, 0.96, 1.22],     # O2 hydroxyl oxygen (tilted up)
+        [-0.25, -0.71, 1.33],   # H3
+        [-0.09, -0.10, -0.90],  # C4
+        [1.34, -0.15, -1.59],   # C5 aldehyde carbon
+        [-0.69, 0.64, -1.48],   # H6
+        [2.43, 0.23, -1.05],    # O7 carbonyl oxygen
+        [1.45, -0.51, -2.64],   # H8
+        [-0.63, -1.03, -1.15],  # H9
+        [1.85, 0.88, 0.68],     # H10 on O2, H-bonded toward O7
+    ])
+    z = np.array([6, 1, 8, 1, 6, 6, 1, 8, 1, 1, 1], dtype=np.int64)
+    return coords * ANGSTROM2BOHR, z
 
 
 def s8_crown(scale=1.0):

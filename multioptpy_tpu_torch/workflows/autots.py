@@ -24,8 +24,8 @@ import torch
 from multioptpy_tpu_torch.analysis.vibrations import count_imaginary
 from multioptpy_tpu_torch.device import resolve_device
 from multioptpy_tpu_torch.drivers.irc import IRCConfig, IRCResult, irc
-from multioptpy_tpu_torch.drivers.neb import (NEBConfig, interpolate_linear,
-                                              neb)
+from multioptpy_tpu_torch.drivers.neb import (NEBConfig, idpp_path,
+                                              interpolate_linear, neb)
 from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
 from multioptpy_tpu_torch.interpolation import linear_resample
 from multioptpy_tpu_torch.ops import hosteval
@@ -150,9 +150,6 @@ def autots(calc, reactant, z, config=AutoTSConfig(), product_coords=None,
         raise NotImplementedError(
             "the sharded AutoTS (mesh) arrives with ROADMAP Queue 1 item 17")
     del mesh_axis
-    if config.use_idpp:
-        raise NotImplementedError(
-            "IDPP initial paths arrive with ROADMAP Queue 1 item 11")
     dev = resolve_device(device)
     t0 = time.perf_counter()
 
@@ -225,6 +222,8 @@ def autots(calc, reactant, z, config=AutoTSConfig(), product_coords=None,
                                           device=dev),
                           product_coords[None]])
         path0 = linear_resample(full, n_images)
+    elif config.use_idpp:
+        path0 = idpp_path(reactant, product_coords, n_images)
     else:
         path0 = interpolate_linear(reactant, product_coords, n_images)
     _vlog(f"step2: NEB ({path0.shape[0]} images x {path0.shape[1]} atoms)")

@@ -120,11 +120,27 @@ def test_v1_config_translation_matches_reference():
 
 
 def test_mesh_and_idpp_raise():
+    """The sharded AutoTS (mesh) still raises, naming item 17; an IDPP
+    initial path now runs, and its NEB stage starts from the reference's
+    IDPP band (a 3-atom system, where the pair potential has work to do)."""
     calc = MullerBrown(device="cpu")
     r = np.array([[MB_MIN_A[0], MB_MIN_A[1], 0.0]])
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
         autots.autots(calc, r, [1], product_coords=r, mesh=object(),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        autots.autots(calc, r, [1], autots.AutoTSConfig(use_idpp=True),
-                      product_coords=r, device="cpu")
+    from multioptpy_tpu.drivers import neb as ref_neb
+
+    seen = {}
+    a = np.array([[0.0, 0.0, 0.0], [1.1, 0.0, 0.0], [-0.5, 1.0, 0.3]])
+    b = np.array([[0.0, 0.0, 0.0], [1.3, 0.2, 0.0], [2.0, 0.9, -0.2]])
+    cfg = dataclasses.replace(
+        autots.AutoTSConfig(use_idpp=True, n_images=5),
+        neb=dataclasses.replace(autots.AutoTSConfig().neb, n_steps=1))
+    with pytest.raises(StopIteration):
+        autots.autots(MullerBrown(device="cpu"), a, [1, 1, 1], cfg,
+                      product_coords=b, device="cpu",
+                      stage_hook=lambda name, **kw: seen.update(kw)
+                      or (name == "step2_neb" and next(iter(()))))
+    want = ref_neb.idpp_path(jnp.asarray(a), jnp.asarray(b), 5)
+    np.testing.assert_allclose(seen["path0"].numpy(), np.asarray(want),
+                               rtol=0, atol=1e-12)

@@ -1,7 +1,9 @@
 """Port parity: `python -m multioptpy_tpu_torch` against the JAX package's
-CLI: run_autots on Muller-Brown and optmain on H2O+ write the same files;
-commands and flags outside the port exit with status 2 naming their
-ROADMAP item; the device defaults to the card."""
+CLI: run_autots on Muller-Brown (also with a v1 config that asks for IDPP
+and a spline redistribution), optmain on H2O+ (also with the bare
+-modelhess), nebmain on an Ar5 band and ircmain on Muller-Brown with each
+integrator write the same files; commands and flags outside the port exit
+with status 2 naming their ROADMAP item; the device defaults to the card."""
 
 import json
 
@@ -72,7 +74,7 @@ def test_optmain_writes_the_reference_geometry(tmp_path, capsys):
 
 def test_unported_commands_and_flags_exit_2(tmp_path, capsys):
     args = _mb_inputs(tmp_path)
-    assert port_main.main(["nebmain", *args]) == 2
+    assert port_main.main(["mdmain", *args]) == 2
     assert "ROADMAP Queue 1 item" in capsys.readouterr().err
     with pytest.raises(SystemExit) as exc:
         port_main.main(["run_autots", *args, "-freq", "--device", "cpu"])
@@ -140,3 +142,233 @@ def test_optmain_flags_match_the_reference(flags, tmp_path, capsys):
     np.testing.assert_allclose(
         np.loadtxt(tmp_path / "port" / "energies.csv"),
         np.loadtxt(tmp_path / "ref" / "energies.csv"), rtol=0, atol=1e-10)
+
+
+def _read_frames(path):
+    from multioptpy_tpu_torch.io.xyz import read_trajectory
+
+    _, frames, comments = read_trajectory(str(path))
+    return frames, comments
+
+
+_AR5_ANG = np.array([[0.0, 0.0, 0.0], [7.1, 0.0, 0.0], [3.55, 6.15, 0.0],
+                     [3.55, 2.05, 5.8], [3.55, 2.05, -5.8]]) * _B2A
+_NEB_CSVS = ("path_length.csv", "energy_plot.csv", "bias_force_rms.csv",
+             "orthogonality.csv", "perp_rms_gradient.csv",
+             "perp_max_gradient.csv")
+
+
+def _ar5_pair(tmp_path):
+    end = _AR5_ANG.copy()
+    end[4] = np.array([3.55, -6.0, -3.0]) * _B2A
+    for name, c in (("a.xyz", _AR5_ANG), ("b.xyz", end)):
+        (tmp_path / name).write_text(
+            "5\nAr5\n" + "".join(f"Ar {x:.12f} {y:.12f} {w:.12f}\n"
+                                  for x, y, w in c))
+    return str(tmp_path / "a.xyz"), str(tmp_path / "b.xyz")
+
+
+def _compare_neb_outputs(ref_dir, got_dir, csvs=_NEB_CSVS):
+    f_ref, c_ref = _read_frames(ref_dir / "neb_path.xyz")
+    f_got, c_got = _read_frames(got_dir / "neb_path.xyz")
+    np.testing.assert_allclose(f_got, f_ref, rtol=0, atol=1e-9)
+    e_ref = np.array([float(c.split("=")[1]) for c in c_ref])
+    e_got = np.array([float(c.split("=")[1]) for c in c_got])
+    np.testing.assert_allclose(e_got, e_ref, rtol=0, atol=1e-10)
+    for name in csvs:
+        want = np.loadtxt(ref_dir / name, delimiter=",", ndmin=2)
+        got = np.loadtxt(got_dir / name, delimiter=",", ndmin=2)
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=1e-8, atol=2e-10,
+                                   err_msg=name)
+
+
+_NEB_FLAG_SETS = [
+    ["-lup", "-sdneb", "-k", "0.02", "-pitr", "-ad", "2"],
+    ["-idpp", "-ci", "2", "3", "-adrpred", "2", "-cineb", "2", "-aconv"],
+    ["-dmf", "-lbfgs", "-fe", "0", "-adsg", "3,5,2"],
+    ["-qsmv2", "-afneb", "-nd", "0.4"],
+    ["-cg", "dy", "-nebv", "ewbneb", "-adg", "3"],
+]
+
+
+@pytest.mark.parametrize("flags", _NEB_FLAG_SETS,
+                         ids=[" ".join(f) for f in _NEB_FLAG_SETS])
+def test_nebmain_matches_the_reference(flags, tmp_path, capsys):
+    """6 iterations of an Ar5 band (LJ) under each flag set: the same band,
+    energies and per-iteration CSVs as the JAX package's nebmain (1e-9
+    Angstrom, 1e-10 Ha; the CSVs 1e-8 relative or 2e-10 absolute: qsm2's
+    tangents, propagated image by image through 13 images, part the
+    orthogonality by 4e-9 and the largest force by 9.4e-11 Ha/Bohr)."""
+    a, b = _ar5_pair(tmp_path)
+    args = [a, "-i2", b, "-nimg", "6", "-ns", "6", "-calc", "lj", *flags]
+    assert ref_main.main(["nebmain", *args, "-out",
+                          str(tmp_path / "ref")]) == 0
+    ref_line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert port_main.main(["nebmain", *args, "-out", str(tmp_path / "port"),
+                           "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip().splitlines()[-1] == ref_line
+    _compare_neb_outputs(tmp_path / "ref", tmp_path / "port")
+
+
+def test_nebmain_aneb_folder_and_trajectory_inputs(tmp_path, capsys):
+    """-aneb writes the final energies only; a folder of *_N.xyz images and
+    a trajectory are initial paths, as in the reference."""
+    from multioptpy_tpu_torch.io.xyz import format_xyz
+
+    a, b = _ar5_pair(tmp_path)
+    args = [a, "-i2", b, "-nimg", "6", "-ns", "7", "-calc", "lj", "-aneb",
+            "1", "3"]
+    assert ref_main.main(["nebmain", *args, "-out",
+                          str(tmp_path / "ref")]) == 0
+    assert port_main.main(["nebmain", *args, "-out", str(tmp_path / "port"),
+                           "--device", "cpu"]) == 0
+    capsys.readouterr()
+    _compare_neb_outputs(tmp_path / "ref", tmp_path / "port", csvs=())
+    frames, _ = _read_frames(tmp_path / "ref" / "neb_path.xyz")
+    d = tmp_path / "imgs"
+    d.mkdir()
+    traj = ""
+    for i, f in enumerate(frames):
+        (d / f"img_{i}.xyz").write_text(format_xyz(["Ar"] * 5, f))
+        traj += format_xyz(["Ar"] * 5, f, f"frame {i}")
+    (tmp_path / "traj.xyz").write_text(traj)
+    for src in (str(d), str(tmp_path / "traj.xyz")):
+        tag = "dir" if src == str(d) else "traj"
+        args = [src, "-calc", "lj", "-ns", "3"]
+        assert ref_main.main(["nebmain", *args, "-out",
+                              str(tmp_path / f"r_{tag}")]) == 0
+        assert port_main.main(["nebmain", *args, "-out",
+                               str(tmp_path / f"p_{tag}"), "--device",
+                               "cpu"]) == 0
+        capsys.readouterr()
+        _compare_neb_outputs(tmp_path / f"r_{tag}", tmp_path / f"p_{tag}")
+
+
+def test_neb_job_is_what_nebmain_runs(tmp_path):
+    """`cli.neb_job` turns nebmain's flags into the band run: the initial
+    path on the flags' device, the NEBConfig and -aneb's keywords; the
+    calculator of the flags takes the library's default band eigh."""
+    from multioptpy_tpu_torch import cli
+
+    a, b = _ar5_pair(tmp_path)
+    args, symbols, path0, z, cfg, aneb_kw = cli.neb_job(
+        [a, "-i2", b, "-nimg", "6", "-ns", "4", "-sqm2", "-ads", "2",
+         "-aneb", "1", "3", "--device", "cpu"])
+    assert symbols == ["Ar"] * 5 and list(z) == [18] * 5
+    assert path0.shape == (6, 5, 3) and path0.device.type == "cpu"
+    assert (cfg.n_steps, cfg.redistribute, cfg.redistribute_every) == (
+        4, "spline", 2)
+    assert aneb_kw == {"interpolation_num": 1, "frequency": 3}
+    assert cli.neb_job([a, "-i2", b, "--device", "cpu"])[-1] is None
+    assert cli._make_calculator(args).eigh_impl == "auto"
+
+
+def test_nebmain_flags_outside_the_slice_exit_2(tmp_path, capsys):
+    a, b = _ar5_pair(tmp_path)
+    for flag, item in (("-spng", "item 15"), ("-cfbenm", "item 13")):
+        with pytest.raises(SystemExit) as exc:
+            port_main.main(["nebmain", a, "-i2", b, flag, "--device", "cpu"])
+        assert exc.value.code == 2
+        assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("method", ["lqa", "euler", "rk4", "dvv", "hpc"])
+def test_ircmain_matches_the_reference(method, tmp_path, capsys):
+    """9 steps of each integrator from the Muller-Brown AB saddle: the same
+    branches, energies and curvature CSVs (1e-9 Angstrom, 1e-10 Ha)."""
+    from multioptpy_tpu_torch.calculators.model_surfaces import MB_TS_AB
+
+    inp = tmp_path / "ts.xyz"
+    inp.write_text(f"1\nts\nH {MB_TS_AB[0] * _B2A:.16f} "
+                   f"{MB_TS_AB[1] * _B2A:.16f} 0.0\n")
+    args = [str(inp), "-calc", "muller_brown", "-im", method, "-ns", "9"]
+    assert ref_main.main(["ircmain", *args, "-out",
+                          str(tmp_path / "ref")]) == 0
+    ref_line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert port_main.main(["ircmain", *args, "-out", str(tmp_path / "port"),
+                           "--device", "cpu"]) == 0
+    got_line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got_line.replace("/port/", "/ref/") == ref_line
+    ref_dir, got_dir = tmp_path / "ref", tmp_path / "port"
+    e_ref = np.loadtxt(ref_dir / "irc_energies.csv")
+    e_got = np.loadtxt(got_dir / "irc_energies.csv")
+    # the imaginary mode's sign (each eigensolver's) may swap the branches
+    swap = abs(e_got[0, 0] - e_ref[0, 0]) > 1e-9
+    names = ("forward", "backward")
+    if swap:
+        e_got = e_got[:, ::-1]
+    np.testing.assert_allclose(e_got, e_ref, rtol=0, atol=1e-10)
+    for k, name in enumerate(names):
+        other = names[1 - k] if swap else name
+        f_ref, _ = _read_frames(ref_dir / f"irc_{name}.xyz")
+        f_got, _ = _read_frames(got_dir / f"irc_{other}.xyz")
+        np.testing.assert_allclose(f_got, f_ref, rtol=0, atol=1e-9)
+        for csv in ("irc_curvature_properties", "path_bending_angle"):
+            want = np.loadtxt(ref_dir / f"{csv}_{name}.csv", delimiter=",",
+                              skiprows=1)
+            got = np.loadtxt(got_dir / f"{csv}_{other}.csv", delimiter=",",
+                             skiprows=1)
+            np.testing.assert_allclose(np.abs(got), np.abs(want), rtol=1e-8,
+                                       atol=1e-9, err_msg=csv)
+
+
+def test_bare_modelhess_runs_and_matches_the_reference(tmp_path, capsys):
+    """`optmain -modelhess` means fischerd3old, as in the reference; 3 steps
+    on H2O+ (SQM2) from that model Hessian give the reference's energies."""
+    inp = tmp_path / "h2o.xyz"
+    inp.write_text("3\nwater\nO 0.0 0.0 0.1173\nH 0.0 0.80 -0.4692\n"
+                   "H 0.0 -0.7572 -0.45\n")
+    args = [str(inp), "-calc", "sqm2", "-c", "1", "-m", "2", "-ns", "3",
+            "-modelhess"]
+    ref_main.main(["optmain", *args, "-out", str(tmp_path / "ref"),
+                   "-nosymm"])
+    capsys.readouterr()
+    rc = port_main.main(["optmain", *args, "-out", str(tmp_path / "port"),
+                         "--device", "cpu"])
+    assert rc in (0, 1)
+    np.testing.assert_allclose(
+        np.loadtxt(tmp_path / "port" / "energies.csv"),
+        np.loadtxt(tmp_path / "ref" / "energies.csv"), rtol=1e-10)
+
+
+def test_run_autots_v1_config_with_idpp_and_spline_runs(tmp_path, capsys):
+    """A v1 config asking for an IDPP initial path and a spline
+    redistribution every 3 iterations runs and writes the reference's TS."""
+    args = _mb_inputs(tmp_path)[:-2]
+    (tmp_path / "v1.json").write_text(json.dumps({
+        "top_n_candidates": 1,
+        "step2_settings": {"use_image_dependent_pair_potential": True,
+                           "align_distances_spline": 3, "NSTEP": 30},
+        "step4_settings": {"intrinsic_reaction_coordinates": ["0.1", "6",
+                                                              "euler"]}}))
+    args += ["-cfg", str(tmp_path / "v1.json")]
+    assert ref_main.main(["run_autots", *args, "-out",
+                          str(tmp_path / "ref")]) == 0
+    ref_line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert port_main.main(["run_autots", *args, "-out",
+                           str(tmp_path / "port"), "--device", "cpu"]) == 0
+    got_line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got_line.replace("/port/", "/ref/") == ref_line
+    ref = (tmp_path / "ref" / "ts.xyz").read_text().splitlines()
+    got = (tmp_path / "port" / "ts.xyz").read_text().splitlines()
+    assert got[:2] == ref[:2]
+    np.testing.assert_allclose(np.array(got[2].split()[1:], float),
+                               np.array(ref[2].split()[1:], float), rtol=0,
+                               atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_nebmain_three_iterations_on_the_card(tmp_path, capsys):
+    """3 nebmain iterations of the Ar5 band on the card match the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100 through chip_smoke)")
+    a, b = _ar5_pair(tmp_path)
+    args = [a, "-i2", b, "-nimg", "6", "-ns", "3", "-calc", "lj"]
+    assert port_main.main(["nebmain", *args, "-out",
+                           str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+    assert port_main.main(["nebmain", *args, "-out",
+                           str(tmp_path / "card")]) == 0
+    capsys.readouterr()
+    _compare_neb_outputs(tmp_path / "cpu", tmp_path / "card")
+

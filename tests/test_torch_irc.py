@@ -155,6 +155,38 @@ def test_lqa_irc_on_hcn_cation_matches_reference():
 
 
 def test_other_irc_methods_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
+    """Every integrator of the reference's `make_irc_step` runs in the port;
+    other names raise as in the reference."""
+    with pytest.raises(ValueError, match="unknown IRC method"):
         irc.irc(MullerBrown(device="cpu"), _MB_TS, np.array([1]),
-                config=irc.IRCConfig(method="rk4"), device="cpu")
+                config=irc.IRCConfig(method="gs"), device="cpu")
+
+
+@pytest.mark.parametrize("method", ["euler", "rk4", "dvv", "hpc"])
+def test_irc_integrators_on_muller_brown_match_reference(method):
+    """9 steps (past the first segment of 8) of each integrator from the AB
+    saddle: paths to 1e-12 Bohr, energies to 1e-10 relative."""
+    cfg = dict(method=method, step_size=0.05, n_steps=9)
+    ref = ref_irc.irc(RefMB(), jnp.asarray(_MB_TS), jnp.array([1]),
+                      config=ref_irc.IRCConfig(**cfg))
+    got = irc.irc(MullerBrown(device="cpu"), _MB_TS, np.array([1]),
+                  config=irc.IRCConfig(**cfg), device="cpu")
+    assert len(got.forward_path) == len(ref.forward_path) == 9
+    _compare(ref, got, 1e-12)
+
+
+@pytest.mark.parametrize("method", ["euler", "rk4", "dvv", "hpc"])
+def test_irc_integrators_on_hcn_cation_match_reference(method):
+    """3 steps of each integrator on SQM2 from the bridged HCN+ geometry
+    with the reference's TS Hessian (the F1 cation): paths to 1e-8 Bohr,
+    energies to 1e-10 relative."""
+    cfg = dict(method=method, step_size=0.1, n_steps=3)
+    h = _hcn_hessian()
+    ref = ref_irc.irc(ref_sqm.SQM2(charge=1), jnp.asarray(_BRIDGED),
+                      jnp.asarray(_Z), hessian=jnp.asarray(h),
+                      config=ref_irc.IRCConfig(**cfg))
+    got = irc.irc(sqm.SQM2(charge=1, device="cpu"), _BRIDGED, _Z,
+                  hessian=h, config=irc.IRCConfig(**cfg), device="cpu")
+    _compare(ref, got, 1e-8)
+    for name in ("forward_gradients", "backward_gradients"):
+        assert getattr(got, name).shape == (3, 3, 3)

@@ -65,16 +65,21 @@ def test_neb_forces_match_reference(variant, climbing):
 
 
 def test_other_variants_and_optimizers_raise():
+    """Every variant, clock and scheme of the reference runs in the port
+    (tests/test_torch_neb_family.py); names outside them raise as in the
+    reference."""
     path, e, g = _random_band(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    with pytest.raises(ValueError, match="unknown NEB variant"):
         neb.neb_forces(torch.as_tensor(path), torch.as_tensor(e),
-                       torch.as_tensor(g), variant="dneb")
+                       torch.as_tensor(g), variant="fneb")
     calc = MullerBrown(device="cpu")
-    for cfg in (neb.NEBConfig(optimizer="lbfgs"),
-                neb.NEBConfig(redistribute="spline", redistribute_every=2),
-                neb.NEBConfig(variant="qsm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            neb.neb(calc, _mb_path(), [1], cfg, device="cpu")
+    with pytest.raises(ValueError, match="unknown NEB optimizer"):
+        neb.neb(calc, _mb_path(), [1], neb.NEBConfig(optimizer="bfgs"),
+                device="cpu")
+    with pytest.raises(ValueError, match="unknown redistribution scheme"):
+        neb.neb(calc, _mb_path(), [1],
+                neb.NEBConfig(n_steps=3, redistribute="cubic",
+                              redistribute_every=2), device="cpu")
 
 
 def test_fire_step_matches_reference():

@@ -1,0 +1,268 @@
+"""Port parity: the NEB family of multioptpy_tpu_torch.drivers.neb against
+the JAX package: every force law and tangent (1e-12 relative on a random
+band), IDPP paths, spline climbing-image insertion, the per-image trust
+clamp and adaptive FIRE, every band clock over 10 steps of a 6-image Ar5
+band (LJ; paths to 1e-9 Bohr), the chunked driver against the per-step
+loop, `neb_scan`, and the adaptive bands (`aneb` against the reference's
+insertion oracle of tests/test_neb.py and its driver on Muller-Brown)."""
+
+import dataclasses
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multioptpy_tpu.calculators.lj import LennardJones as RefLJ
+from multioptpy_tpu.calculators.model_surfaces import MullerBrown as RefMB
+from multioptpy_tpu_torch.calculators.lj import LennardJones
+from multioptpy_tpu_torch.calculators.model_surfaces import (MB_MIN_A,
+                                                             MB_MIN_C,
+                                                             MullerBrown)
+
+ref_neb = importlib.import_module("multioptpy_tpu.drivers.neb")
+neb = importlib.import_module("multioptpy_tpu_torch.drivers.neb")
+
+torch.set_num_threads(1)
+
+_AR = np.full(5, 18)
+# Ar5: a trigonal bipyramid, and the same with one apex moved over an
+# edge (a 0.6 mHa barrier at the third of 6 images)
+_AR5_A = np.array([[0.0, 0.0, 0.0], [7.1, 0.0, 0.0], [3.55, 6.15, 0.0],
+                   [3.55, 2.05, 5.8], [3.55, 2.05, -5.8]])
+_AR5_B = _AR5_A.copy()
+_AR5_B[4] = [3.55, -6.0, -3.0]
+
+
+def _random_band(seed, n_img=7, n_atoms=4):
+    rng = np.random.default_rng(seed)
+    path = np.cumsum(0.3 * rng.standard_normal((n_img, n_atoms, 3)), 0)
+    e = np.sin(np.linspace(0, np.pi, n_img)) + 0.1 * rng.standard_normal(n_img)
+    return path, e, rng.standard_normal((n_img, n_atoms, 3))
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-300)
+
+
+def test_tangents_match_reference():
+    for seed in (1, 2, 3):
+        path, e, _ = _random_band(seed)
+        p, et = torch.as_tensor(path), torch.as_tensor(e)
+        jp, je = jnp.asarray(path), jnp.asarray(e)
+        assert _rel(neb._per_atom_tangents(p, et).numpy(),
+                    ref_neb._per_atom_tangents(jp, je)) < 1e-12
+        assert _rel(neb.ayala_tangents(p, et).numpy(),
+                    ref_neb.ayala_tangents(jp, je)) < 1e-12
+        assert _rel(neb.improved_tangents(p, et).numpy(),
+                    ref_neb.improved_tangents(jp, je)) < 1e-12
+
+
+@pytest.mark.parametrize("variant", neb.VARIANTS)
+def test_force_laws_match_reference(variant):
+    path, e, g = _random_band(4)
+    for climbing, endpoints in ((False, False), (True, True)):
+        want = ref_neb.neb_forces(jnp.asarray(path), jnp.asarray(e),
+                                  jnp.asarray(g), 0.02, variant, climbing,
+                                  endpoints, 8.0, 3)
+        got = neb.neb_forces(torch.as_tensor(path), torch.as_tensor(e),
+                             torch.as_tensor(g), 0.02, variant, climbing,
+                             endpoints, 8.0, 3)
+        assert _rel(got.numpy(), want) < 1e-12, (variant, climbing)
+
+
+def test_unknown_variant_and_optimizer_raise():
+    path, e, g = _random_band(5)
+    with pytest.raises(ValueError, match="unknown NEB variant"):
+        neb.neb_forces(torch.as_tensor(path), torch.as_tensor(e),
+                       torch.as_tensor(g), variant="fneb")
+    with pytest.raises(ValueError, match="unknown NEB optimizer"):
+        neb.make_neb_step(MullerBrown(device="cpu"), [1],
+                          neb.NEBConfig(optimizer="bfgs"))
+
+
+def test_idpp_path_and_middle_refinement_match_reference():
+    a, b = _AR5_A, _AR5_B
+    want = ref_neb.idpp_path(jnp.asarray(a), jnp.asarray(b), 6, n_steps=120)
+    got = neb.idpp_path(torch.as_tensor(a), torch.as_tensor(b), 6,
+                        n_steps=120)
+    assert _rel(got.numpy(), want) < 1e-11
+    mid = 0.5 * (a + b) + 0.1
+    want = ref_neb._idpp_refine_middle(jnp.asarray(a), jnp.asarray(mid),
+                                       jnp.asarray(b), n_steps=80)
+    got = neb._idpp_refine_middle(torch.as_tensor(a), torch.as_tensor(mid),
+                                  torch.as_tensor(b), n_steps=80)
+    assert _rel(got.numpy(), want) < 1e-11
+
+
+def test_spline_climbing_insert_matches_reference():
+    path = np.array(ref_neb.interpolate_linear(jnp.asarray(_AR5_A),
+                                               jnp.asarray(_AR5_B), 8))
+    e = np.array([0.0, 0.1, 0.3, 0.55, 0.5, 0.2, 0.1, 0.0])
+    want = ref_neb.spline_climbing_insert(jnp.asarray(path), jnp.asarray(e))
+    got = neb.spline_climbing_insert(torch.as_tensor(path),
+                                     torch.as_tensor(e))
+    assert not np.allclose(np.asarray(want), path)   # an image moved
+    assert _rel(got.numpy(), want) < 1e-11
+
+
+def test_per_image_trust_clamp_and_afire_match_reference():
+    rng = np.random.default_rng(6)
+    path, e, f = _random_band(6)
+    for scale in (0.05, 2.0):
+        mv = scale * rng.standard_normal(path.shape)
+        want = ref_neb.per_image_trust_clamp(jnp.asarray(path),
+                                             jnp.asarray(f), jnp.asarray(mv))
+        got = neb.per_image_trust_clamp(torch.as_tensor(path),
+                                        torch.as_tensor(f),
+                                        torch.as_tensor(mv))
+        assert _rel(got.numpy(), want) < 1e-12
+    ref_state = ref_neb.afire_init(7, 4, jnp.float64, dt0=0.2)
+    state = neb.afire_init(7, 4, torch.float64, dt0=0.2)
+    for k in range(8):
+        forces = rng.standard_normal(path.shape) * (1.0 if k % 3 else -1.0)
+        ref_mv, ref_state = ref_neb.afire_step(ref_state,
+                                               jnp.asarray(forces),
+                                               maxstep=0.3)
+        mv, state = neb.afire_step(state, torch.as_tensor(forces),
+                                   maxstep=0.3)
+        assert _rel(mv.numpy(), ref_mv) < 1e-12
+        for a, b in zip(state, ref_state):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12)
+
+
+def _ar_band(n_img=6):
+    return np.array(ref_neb.interpolate_linear(jnp.asarray(_AR5_A),
+                                               jnp.asarray(_AR5_B), n_img))
+
+
+def _both(kw, path=None, z=_AR, ref_calc=None, calc=None):
+    path = _ar_band() if path is None else path
+    ref = ref_neb.neb(ref_calc or RefLJ(), jnp.asarray(path), jnp.asarray(z),
+                      ref_neb.NEBConfig(**kw))
+    got = neb.neb(calc or LennardJones(device="cpu"), path, z,
+                  neb.NEBConfig(**kw), device="cpu")
+    return ref, got
+
+
+_CLOCK_KW = dict(variant="cineb", n_steps=10, climbing_start=4, fmax=1e-12,
+                 k_spring=0.005, dt0=1.0, dt_max=3.0, sd_step=50.0,
+                 max_move=0.2)
+
+
+@pytest.mark.parametrize("optimizer", neb.OPTIMIZERS)
+def test_band_clocks_match_reference(optimizer):
+    """10 iterations of each clock on the Ar5 band: paths to 1e-9 Bohr,
+    energies to 1e-10 of the band's largest |E|."""
+    ref, got = _both(dict(_CLOCK_KW, optimizer=optimizer))
+    assert got.n_iterations == ref.n_iterations == 10
+    np.testing.assert_allclose(got.path.numpy(), np.asarray(ref.path),
+                               rtol=0, atol=1e-9)
+    e_ref = np.asarray(ref.energy_history)
+    np.testing.assert_allclose(got.energy_history, e_ref, rtol=0,
+                               atol=1e-10 * np.abs(e_ref).max())
+    assert got.ts_index == ref.ts_index
+
+
+@pytest.mark.parametrize("kw", [
+    dict(variant="qsm2", per_image_trust=True),
+    dict(variant="string", optimizer="afire"),
+    dict(variant="cineb", redistribute="ritz", redistribute_every=3,
+         spline_ci_start=2, spline_ci_interval=4),
+    dict(variant="dmf", optimize_endpoints=True, redistribute="geodesic",
+         redistribute_every=5),
+], ids=["qsm2-pitr", "string-afire", "ritz-ci", "dmf-geodesic"])
+def test_band_options_match_reference(kw):
+    ref, got = _both(dict(_CLOCK_KW, n_steps=8, **kw))
+    np.testing.assert_allclose(got.path.numpy(), np.asarray(ref.path),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got.energy_history,
+                               np.asarray(ref.energy_history), rtol=1e-10,
+                               atol=0)
+
+
+def test_chunked_driver_equals_the_per_step_loop():
+    """`neb`'s chunked order (`scan_chunk > 1`, the reference's
+    `_neb_chunked`) against the per-step loop (same host work at the same
+    iterations while the band has not converged) and against the
+    reference's per-step loop; a callback forces the per-step loop. (FIRE:
+    an L-BFGS memory carried across redistributions turns 1e-13 of
+    rounding into 4e-7 Bohr in both packages alike.)"""
+    kw = dict(_CLOCK_KW, optimizer="fire", redistribute="spline",
+              redistribute_every=3, spline_ci_start=1, spline_ci_interval=4,
+              scan_chunk=4)
+    calc = LennardJones(device="cpu")
+    chunked = neb.neb(calc, _ar_band(), _AR, neb.NEBConfig(**kw),
+                      device="cpu")
+    seen = []
+    loop = neb.neb(calc, _ar_band(), _AR, neb.NEBConfig(**kw),
+                   callback=lambda it, *a: seen.append(it), device="cpu")
+    assert seen == list(range(1, 11))
+    assert torch.equal(chunked.path, loop.path)
+    np.testing.assert_array_equal(chunked.energy_history, loop.energy_history)
+    ref = ref_neb.neb(RefLJ(), jnp.asarray(_ar_band()), jnp.asarray(_AR),
+                      ref_neb.NEBConfig(**dict(kw, scan_chunk=0)))
+    np.testing.assert_allclose(chunked.path.numpy(), np.asarray(ref.path),
+                               rtol=0, atol=1e-9)
+
+
+def test_neb_scan_matches_reference():
+    kw = dict(_CLOCK_KW, n_steps=6, fmax=1e-2)
+    ref = ref_neb.neb_scan(RefLJ(), jnp.asarray(_ar_band()),
+                           jnp.asarray(_AR), ref_neb.NEBConfig(**kw))
+    got = neb.neb_scan(LennardJones(device="cpu"), _ar_band(), _AR,
+                       neb.NEBConfig(**kw), device="cpu")
+    np.testing.assert_allclose(got.path.numpy(), np.asarray(ref.path),
+                               rtol=0, atol=1e-9)
+    np.testing.assert_allclose(got.energy_history,
+                               np.asarray(ref.energy_history), rtol=1e-10)
+    assert got.converged == bool(ref.converged)
+    assert got.n_iterations == 6
+
+
+def test_aneb_insert_matches_the_reference_oracle():
+    """The oracle of
+    tests/test_neb.py::test_aneb_insert_matches_reference_rule."""
+    path = np.arange(5, dtype=np.float64).reshape(5, 1, 1) * 10.0
+    e = np.array([0.0, 1.0, 0.5, 2.0, 0.0])
+    out = neb.aneb_insert(path, e, interpolation_num=1)
+    np.testing.assert_allclose(out.ravel(), [0.0, 5.0, 10.0, 15.0, 20.0,
+                                             25.0, 30.0, 35.0, 40.0])
+    path2 = np.array([0.0, 3.0, 9.0]).reshape(3, 1, 1)
+    out2 = neb.aneb_insert(path2, np.array([0.0, 1.0, 0.0]), 2)
+    np.testing.assert_allclose(out2.ravel(),
+                               [0.0, 1.0, 2.0, 3.0, 5.0, 7.0, 9.0])
+    assert len(neb.aneb_insert(path[:4], np.array([0.0, 1, 1, 0]), 1)) == 4
+    np.testing.assert_array_equal(out, ref_neb.aneb_insert(path, e, 1))
+
+
+def _mb_path(n=7):
+    a = np.array([[MB_MIN_A[0], MB_MIN_A[1], 0.0]])
+    c = np.array([[MB_MIN_C[0], MB_MIN_C[1], 0.0]])
+    return np.array(ref_neb.interpolate_linear(jnp.asarray(a),
+                                               jnp.asarray(c), n))
+
+
+def test_aneb_and_adaptive_neb_match_reference_on_muller_brown():
+    kw = dict(variant="cineb", n_steps=12, k_spring=5e-4, climbing_start=6,
+              fmax=1e-12, dt0=0.05, dt_max=0.3)
+    cfg, ref_cfg = neb.NEBConfig(**kw), ref_neb.NEBConfig(**kw)
+    ref = ref_neb.aneb(RefMB(), jnp.asarray(_mb_path()), jnp.array([1]),
+                       ref_cfg, interpolation_num=1, frequency=4)
+    got = neb.aneb(MullerBrown(device="cpu"), _mb_path(), [1], cfg,
+                   interpolation_num=1, frequency=4, device="cpu")
+    assert got.path.shape == ref.path.shape and got.path.shape[0] > 7
+    np.testing.assert_allclose(got.path.numpy(), np.asarray(ref.path),
+                               rtol=0, atol=1e-9)
+    cfg = dataclasses.replace(cfg, n_steps=5)
+    ref = ref_neb.adaptive_neb(RefMB(), jnp.asarray(_mb_path()),
+                               jnp.array([1]),
+                               dataclasses.replace(ref_cfg, n_steps=5),
+                               n_rounds=2)
+    got = neb.adaptive_neb(MullerBrown(device="cpu"), _mb_path(), [1], cfg,
+                           n_rounds=2, device="cpu")
+    assert got.path.shape == ref.path.shape == (11, 1, 3)
+    np.testing.assert_allclose(got.path.numpy(), np.asarray(ref.path),
+                               rtol=0, atol=1e-9)

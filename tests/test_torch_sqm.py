@@ -130,6 +130,18 @@ def test_band_energy_pallas_matches_xla():
     np.testing.assert_allclose(e_p.item(), float(e_ref), rtol=1e-12)
 
 
+def test_default_band_eigh_is_the_library_eigh_on_the_cpu():
+    """The default eigh_impl "auto" is one route for the CLI and library
+    callers: torch.linalg.eigh on a CPU tensor (the Jacobi kernel on a CUDA
+    one), the same band energy as "xla" bit for bit."""
+    coords, z = _hcn()
+    x = torch.as_tensor(coords)[None]
+    calc = sqm.SQM2(charge=1, device="cpu")
+    assert calc.eigh_impl == "auto"
+    e_x = sqm.SQM2(charge=1, eigh_impl="xla", device="cpu").energy(x, z)
+    assert torch.equal(calc.energy(x, z), e_x)
+
+
 def test_f64_fermi_level_counts_electrons_in_f64():
     """Pins a reference fault. With a HOMO-LUMO gap of ~40 kT the
     reference's f32 electron count rounds to n_elec across most of the
