@@ -41,7 +41,7 @@ Phases, each printing one JSON line:
      the block variant in the NEB and in the IRC.
   6. methods: the optimizer method surface on the card, through `optimize`
      and `optimize_batch`, eigh_impl="pallas" on stepper and calculator.
-     (a) Diels-Alder on SQM2 f64, 20 steps each: RS-P-RFO and mode-
+     (a) Diels-Alder on SQM2 f64, 10 steps each: RS-P-RFO and mode-
      following RS-I-RFO (Bofill, saddle_order 1, an exact Hessian every 5
      steps) from the full flagship's saddle-stage start; block updates,
      TRIM, mass weighting, DIC, crsirfo with a C2-C3 bond constraint,
@@ -52,7 +52,7 @@ Phases, each printing one JSON line:
      Hessians of those runs, kept by a second pass, must be converged by
      the step's 14 f64 sweeps (largest off-diagonal <= 1e-12 of max|a|).
      (b) The ensemble of slice A (256 S8 rings, SQM f32) through
-     `optimize_batch` with FIRE, L-BFGS and Adam, 150 steps each; 8
+     `optimize_batch` with FIRE, L-BFGS and Adam, 50 steps each; 8
      members' first 3 energies must agree with a CPU run of those 8 to
      3e-5 of |E| (f32; the relative tolerance of tests/test_jacobi_pallas.py).
      Each run prints its steps, ms per step (per structure and step in
@@ -79,6 +79,45 @@ Phases, each printing one JSON line:
      steps with finite energies. Every run prints ms per iteration (or
      step) and its K1 launches by shape; kernel_check rows follow for every
      other f64 batch the phase launched.
+  8. dynamics: mdmain and ieipmain through cli.main on the Diels-Alder
+     system, SQM2 f64, the band eigh through the kernel
+     (multioptpy_tpu_torch/dynamics_paths.py). (a) mdmain from the full
+     flagship's reactant: nosehoover for 200 steps; none, nosehooverchain,
+     berendsen and langevin for 50; a -cc SHAKE bond, a -ct schedule,
+     -ntraj 2 and a run under six kinds of bias flags. Each prints ms per
+     step, K1 launches per step (at least one 1x72x72 a step) and a
+     profiled step's idle share; the SHAKE bond must hold to 1e-6
+     Angstrom; each thermostat's first 5 steps must agree with a CPU rerun
+     from the card's initial velocities (Langevin: and the card's draws)
+     to 1e-10 Ha and 1e-9 Bohr. The NVE run's total-energy drift must stay
+     under 1e-3 Ha and fall at least threefold at half the time step over
+     the same 25 fs (velocity Verlet is second order), and central
+     differences of the energy must match its gradient to 1e-8 Ha/Bohr.
+     (b) The 36 bias potentials one by one: energy, gradient and Hessian
+     on the card against the CPU to 1e-12 relative; then 20 steps of
+     optimize under all 36 at once, the first 3 energies within 1e-8 Ha
+     of the CPU's. (c) ieipmain with eip, spring_pair, dimer and gnt
+     between the full flagship's IRC endpoints; 2pshs (5 spheres) from the
+     product's relaxed minimum toward the reactant's; -addf -addf_nadd 2
+     -addf_num 10 from the reactant's relaxed minimum and from the
+     product's, where a channel turns over and addf_explore refines the
+     crossing (more than one 108x72x72 launch). Each prints the TS-guess
+     energy beside the flagship's TS, ms per calculator call, K1 launches
+     by shape (2pshs and addf launch at 108x72x72) and the idle share of
+     its first iterations, which are run through the driver in ieipmain's
+     configuration, cut short, and held to the CPU's to 1e-8 Ha; ADDF's,
+     whose first sphere lies tens of Bohr out along the softest modes, to
+     ten times what the CPU's two eigensolvers (the kernel's algorithm,
+     LAPACK) differ by, if that is looser. From the product's minimum,
+     whose softest curvatures are below 1e-5 Ha/Bohr^2, those two differ
+     by an O(1) Ha, so that run is held instead at its refined point: its
+     energy against the CPU's there to 1e-8 Ha, its imaginary modes
+     printed. (d) meta_irc (LQA) from a displaced minimum, 15 steps, the
+     first 2 within 1e-8 Ha of the CPU's; modekill (keep_order 1) on the
+     flagship's TS made a second-order saddle by a keep restraint of
+     negative spring constant on C2-C3 at its length: two imaginary modes
+     before, at most one after, its first round within 1e-8 Ha and 1e-7
+     Bohr of the CPU's.
 Slice A must launch the warp variant and slice B the block variant. The
 kernel_check rows time the wrapper and the kernel launch alone (padded
 input, no sort or gather) as the median of 3 groups of CUDA-event timings
@@ -103,6 +142,13 @@ REPO = pathlib.Path(__file__).resolve().parent
 # f32 (outside the tensor cores) / f64 (tensor-core peak) operations/s
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 67e12}
+# the methods phase's depths (steps of each Diels-Alder run, steps of each
+# ensemble run), cut from 20 and 150 so that the whole script stays inside
+# its 1200 s limit on the slowest host measured: there the full flagship
+# alone takes 90 s against 55-69 s elsewhere, and the uncut script took
+# 1003 s on a 69 s host
+METHOD_STEPS = 10
+ENSEMBLE_STEPS = 50
 SQM_LOOSE = dict(max_force=3e-3, rms_force=2e-3, max_displacement=1e-2,
                  rms_displacement=7e-3)
 
@@ -559,7 +605,7 @@ def shape_counts(jc):
             in sorted(jc.jacobi_eigh_cuda.shape_launches.items())}
 
 
-def phase_methods(jc, card, saddle_start, n_steps=20):
+def phase_methods(jc, card, saddle_start, n_steps=METHOD_STEPS):
     """(a) the Diels-Alder method runs on SQM2 f64 and the RS-P-RFO sweep
     check; (b) the S8 ensemble through optimize_batch."""
     import dataclasses
@@ -643,8 +689,8 @@ def phase_methods(jc, card, saddle_start, n_steps=20):
         cfg = OptimizeConfig(method=method, eigh_impl="pallas", **SQM_LOOSE)
         jc.reset_launches()
         t0 = time.perf_counter()
-        res = optimize_batch(calc, batch, zs, config=cfg, n_steps=150,
-                             device="cuda")
+        res = optimize_batch(calc, batch, zs, config=cfg,
+                             n_steps=ENSEMBLE_STEPS, device="cuda")
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = dict(jc.jacobi_eigh_cuda.variant_launches)
@@ -662,8 +708,10 @@ def phase_methods(jc, card, saddle_start, n_steps=20):
         e_hist = res.energy_history
         out = {"phase": "methods_ensemble", "run": method,
                "config": "256xS8 SQM f32 pallas, optimize_batch",
-               "steps": 150, "n_converged": int(res.converged.sum()),
-               "ms_per_structure_step": run_s / (batch_n * 150) * 1e3,
+               "steps": ENSEMBLE_STEPS,
+               "n_converged": int(res.converged.sum()),
+               "ms_per_structure_step": (run_s / (batch_n * ENSEMBLE_STEPS)
+                                         * 1e3),
                "run_s": run_s,
                "median_e_initial": float(np.median(e0)),
                "median_e_final": float(np.median(e_hist[-1])),
@@ -794,6 +842,297 @@ def phase_reaction_paths(jc, card, full_res, rows):
     return totals
 
 
+def phase_dynamics_and_double_ended(jc, card, full_res):
+    """mdmain and ieipmain through cli.main on the flagship's Diels-Alder
+    system (SQM2 f64, the band eigh through K1), every bias potential, an
+    optimization under all of them, meta-IRC and ModeKill, each against a
+    CPU rerun through the kernel's algorithm
+    (multioptpy_tpu_torch/dynamics_paths.py)."""
+    import tempfile
+
+    from multioptpy_tpu_torch import dynamics_paths as dp
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+
+    torch.set_num_threads(8)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(jc.VARIANTS, 0)
+
+    def take():
+        """Launches since the last reset (by variant, by shape); resets."""
+        v = dict(jc.jacobi_eigh_cuda.variant_launches)
+        for k in totals:
+            totals[k] += v[k]
+        by_shape = shape_counts(jc)
+        jc.reset_launches()
+        return v, by_shape
+
+    def gate(ok, what, out):
+        if not ok:
+            raise AssertionError(f"dynamics_and_double_ended {what}: {out}")
+
+    def put(out):
+        out["phase_elapsed_s"] = time.perf_counter() - t_phase
+        emit(out)
+
+    def calls(by_shape, *shapes):
+        return sum(n for k, n in by_shape.items()
+                   if any(k.startswith(s) for s in shapes))
+
+    _, z = diels_alder_reactant()
+    n_atoms = len(z)
+    reactant = full_res.reactant_coords.cpu().numpy()
+    product = full_res.product_coords.cpu().numpy()
+    ts = full_res.ts_coords.cpu().numpy()
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    r_xyz = dp.write_structure(f"{work}/reactant.xyz", reactant, z)
+
+    # (a) mdmain on the flagship's reactant
+    profiles = {}
+    for k, (label, flags, thermo) in enumerate(dp.md_runs()):
+        jc.reset_launches()
+        run = dp.mdmain_run(r_xyz, flags, "cuda", f"{work}/md{k}")
+        v, by_shape = take()
+        n_traj = 2 if "-ntraj" in flags else 1
+        steps = int(flags[flags.index("-time") + 1]) * n_traj
+        e = run["energies"]
+        out = {"phase": "dynamics", "part": "a_mdmain",
+               "run": f"mdmain -sqm2 {' '.join(flags)}", "steps": steps,
+               "seconds": run["seconds"],
+               "ms_per_step": run["seconds"] / steps * 1e3,
+               "k1_launches_per_step": sum(v.values()) / steps,
+               "finite": bool(np.isfinite(e).all()),
+               "mean_temperature_K": float(e[:, 1].mean()),
+               "kernel_launches": v, "k1_launches_by_shape": by_shape,
+               "card": card}
+        thermostat = flags[flags.index("-thermo") + 1]
+        bias = tuple(dp._BIAS_FLAGS) if "-metad" in flags else ()
+        cc = tuple(flags[flags.index("-cc") + 1:]) if "-cc" in flags else ()
+        if (thermostat, bias, cc) not in profiles:
+            profiles[(thermostat, bias, cc)] = dp.md_step_profile(
+                reactant, z, thermostat, "cuda", bias, cc)
+            take()
+        out["step_profile"] = profiles[(thermostat, bias, cc)]
+        if thermostat == "none":
+            v0, _ = dp.draws_of_seed(z, n_atoms, 0, "cuda")
+            out["nve"] = dp.nve_check(reactant, z, v0, e, "cuda")
+            out["total_energy_drift_Ha"] = out["nve"]["drift_Ha"]
+            take()
+        if "-cc" in flags:
+            d = np.linalg.norm(run["frames"][:, 1] - run["frames"][:, 2],
+                               axis=1) * 0.52917721067
+            out["shake_bond_max_dev_ang"] = float(np.abs(d - 1.47).max())
+        if thermo is not None:
+            n_noise = dp.MD_CMP_STEPS if thermo == "langevin" else 0
+            v0, noise = dp.draws_of_seed(z, n_atoms, n_noise, "cuda")
+            t0 = time.perf_counter()
+            e_cpu, traj_cpu = dp.md_cpu_rerun(
+                reactant, z, thermo, v0,
+                noise if thermo == "langevin" else None)
+            out["cpu_rerun_s"] = time.perf_counter() - t0
+            m = dp.MD_CMP_STEPS
+            out["max_abs_e_diff_cpu_vs_card"] = float(
+                np.abs(e[:m, 0] - e_cpu).max())
+            out["max_abs_x_diff_cpu_vs_card_bohr"] = float(
+                np.abs(run["frames"][:m] - traj_cpu).max())
+        put(out)
+        gate(out["finite"], f"(a) {label} energies", out)
+        gate(by_shape.get("1x72x72 f64 sweeps=9", 0) >= steps,
+             f"(a) {label}: K1 not launched each step at 1x72x72", out)
+        if thermo is not None:
+            gate(out["max_abs_e_diff_cpu_vs_card"] <= 1e-10
+                 and out["max_abs_x_diff_cpu_vs_card_bohr"] <= 1e-9,
+                 f"(a) {label} card vs CPU", out)
+        if "-cc" in flags:
+            gate(out["shake_bond_max_dev_ang"] <= 1e-6, "(a) SHAKE", out)
+        if thermostat == "none":
+            # velocity Verlet: the drift is second order in the time step
+            # when the forces are the energy's gradient
+            nve = out["nve"]
+            gate(nve["drift_Ha"] <= 1e-3 and nve["drift_ratio"] >= 3.0
+                 and nve["max_abs_fd_minus_gradient"] <= 1e-8,
+                 "(a) NVE energy conservation", out)
+
+    # (b) every registered potential, then an optimization under all
+    t0 = time.perf_counter()
+    pc = dp.potentials_check(reactant, z, "cuda")
+    v, by_shape = take()
+    worst = {k: max(p[k] for p in pc.values())
+             for k in ("rel_e", "rel_g", "rel_h")}
+    out = {"phase": "dynamics", "part": "b_potentials", "count": len(pc),
+           "seconds": time.perf_counter() - t0,
+           "worst_rel_card_vs_cpu": worst,
+           "worst_by": {k: max(pc, key=lambda n: pc[n][k]) for k in worst},
+           "per_potential": pc, "card": card}
+    put(out)
+    gate(len(pc) == 36 and all(np.isfinite(p["energy"]) and p["energy"] != 0
+                               for p in pc.values()), "(b) potentials", out)
+    gate(max(worst.values()) <= 1e-12, "(b) card vs CPU", out)
+    jc.reset_launches()
+    card_opt = dp.biased_optimization(reactant, z, "cuda")
+    v, by_shape = take()
+    _, bias_prof = dp.timed_and_profiled(
+        lambda: dp.all_potentials_gradient(reactant, z, "cuda"))
+    take()
+    t0 = time.perf_counter()
+    cpu_opt = dp.biased_optimization(reactant, z, "cpu", n_steps=2)
+    n = min(len(card_opt["energies"]), len(cpu_opt["energies"]))
+    diff = np.abs(card_opt["energies"][:n] - cpu_opt["energies"][:n])
+    out = {"phase": "dynamics", "part": "b_optimize_all_potentials",
+           "steps": card_opt["steps"], "seconds": card_opt["seconds"],
+           "ms_per_step": card_opt["seconds"] / card_opt["steps"] * 1e3,
+           "cpu_s": time.perf_counter() - t0,
+           "energies": card_opt["energies"].tolist(),
+           "max_abs_e_diff_cpu_vs_card_first3": float(diff.max()),
+           "bias_gradient_profile": bias_prof,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(np.isfinite(card_opt["energies"]).all()
+         and out["max_abs_e_diff_cpu_vs_card_first3"] <= 1e-8,
+         "(b) optimization under all potentials", out)
+
+    # (c) ieipmain between the flagship's IRC endpoints and from their
+    # relaxed minima
+    t0 = time.perf_counter()
+    mins = dp.relaxed_minima(reactant, product, z, "cuda")
+    take()
+    put({"phase": "dynamics", "part": "c_relaxed_minima",
+         "seconds": time.perf_counter() - t0, "energies": mins["energies"],
+         "steps": mins["steps"], "card": card})
+    geoms = {"reactant": reactant, "product": product,
+             "reactant_min": mins["reactant"],
+             "product_min": mins["product"]}
+    xyz = {k: dp.write_structure(f"{work}/{k}.xyz", x, z)
+           for k, x in geoms.items()}
+    for k, (label, engine, flags, start, end, check) in enumerate(
+            dp.ieip_runs()):
+        jc.reset_launches()
+        run = dp.ieipmain_run(xyz[start], xyz.get(end), flags, "cuda",
+                              f"{work}/ieip{k}")
+        v, by_shape = take()
+        n_calls = calls(by_shape, "1x72x72", "2x72x72")
+        out = {"phase": "dynamics", "part": "c_ieipmain", "engine": label,
+               "run": f"ieipmain {start}.xyz"
+                      + (f" -i2 {end}.xyz" if end else "")
+                      + f" -sqm2 {' '.join(flags)}",
+               "seconds": run["seconds"], "ts_energy": run["ts_energy"],
+               "ts_energy_minus_flagship_ts": run["ts_energy"]
+               - full_res.ts_energy,
+               "calculator_calls": n_calls,
+               "ms_per_call": run["seconds"] / max(n_calls, 1) * 1e3,
+               "kernel_launches": v, "k1_launches_by_shape": by_shape,
+               "card": card}
+        t0 = time.perf_counter()
+        if check == "saddle":
+            # a channel turned over and refine_saddle took its Hessians;
+            # the refined point's imaginary modes are reported
+            sc = dp.saddle_check(run["ts_guess"], run["ts_energy"], z,
+                                 "cuda")
+            take()
+            out.update({"ts_guess_imaginary_modes": sc["n_imaginary"],
+                        "abs_e_diff_cpu_vs_card":
+                        sc["abs_e_diff_cpu_vs_card"]})
+            bound = 1e-8
+        else:
+            args = (engine, geoms[start],
+                    None if end is None else geoms[end], z)
+            e_card, prof = dp.timed_and_profiled(
+                lambda: dp.ieip_first_iterations(*args, "cuda"))
+            take()
+            t0 = time.perf_counter()
+            e_cpu = dp.ieip_first_iterations(*args, "cpu")
+            out.update({"first_iterations_energies": e_card.tolist(),
+                        "first_iterations_profile": prof,
+                        "abs_e_diff_cpu_vs_card": dp.first_iterations_diff(
+                            engine, e_card, e_cpu)})
+            bound = 1e-8
+            if engine in ("2pshs", "addf"):
+                # a second CPU witness, LAPACK's eigh in place of the
+                # kernel's algorithm: how far the scaled spheres amplify
+                # the rounding of two correct eigensolvers
+                e_lapack = dp.ieip_first_iterations(*args, "cpu", "xla")
+                out["abs_e_diff_cpu_lapack_vs_cpu_kernel"] = \
+                    dp.first_iterations_diff(engine, e_lapack, e_cpu)
+            if engine == "addf":
+                # ADDF's first sphere lies tens of Bohr out along the
+                # softest modes: the card is held to ten times what the
+                # two CPU eigensolvers differ by, never looser than 1e-8
+                bound = max(bound, 10 * out[
+                    "abs_e_diff_cpu_lapack_vs_cpu_kernel"])
+        out["cpu_rerun_s"] = time.perf_counter() - t0
+        out["card_vs_cpu_bound"] = bound
+        put(out)
+        gate(np.isfinite(run["ts_energy"]) and n_calls > 0,
+             f"(c) {label}", out)
+        gate(out["abs_e_diff_cpu_vs_card"] <= bound,
+             f"(c) {label} card vs CPU", out)
+        if engine in ("2pshs", "addf"):
+            gate(by_shape.get("108x72x72 f64 sweeps=9", 0) > 0,
+                 f"(c) {label}: no K1 launch at 108x72x72", out)
+        if check == "saddle":
+            gate(by_shape.get("108x72x72 f64 sweeps=9", 0) > 1,
+                 f"(c) {label}: no saddle refinement", out)
+
+    # (d) meta-IRC from a displaced minimum; ModeKill on a second-order
+    # saddle made from the flagship's TS
+    rng = np.random.default_rng(5)
+    start = reactant + 0.05 * rng.standard_normal(reactant.shape)
+    jc.reset_launches()
+    run = dp.meta_irc_run(start, z, "cuda", 15)
+    v, by_shape = take()
+    _, irc_prof = dp.timed_and_profiled(
+        lambda: dp.meta_irc_run(start, z, "cuda", 1))
+    take()
+    cpu = dp.meta_irc_run(start, z, "cpu", 2)
+    diff = float(np.abs(run["energies"][:2] - cpu["energies"]).max())
+    out = {"phase": "dynamics", "part": "d_meta_irc", "steps":
+           len(run["energies"]), "seconds": run["seconds"],
+           "ms_per_step": run["seconds"] / len(run["energies"]) * 1e3,
+           "start_energy": run["start_energy"],
+           "final_energy": float(run["energies"][-1]),
+           "max_abs_e_diff_cpu_vs_card": diff,
+           "one_step_profile": irc_prof, "kernel_launches": v,
+           "k1_launches_by_shape": by_shape, "card": card}
+    put(out)
+    gate(np.isfinite(run["energies"]).all()
+         and run["energies"][-1] < run["start_energy"] and diff <= 1e-8,
+         "(d) meta_irc", out)
+    bias, n_imag = dp.second_order_saddle_bias(ts, z)
+    jc.reset_launches()
+    full = dp.modekill_run(ts, z, "cuda", keep_order=1, max_rounds=3,
+                           opt_steps=30, bias_engine=bias)
+    v, by_shape = take()
+    short = dp.modekill_run(ts, z, "cuda", keep_order=1, max_rounds=1,
+                            opt_steps=2, bias_engine=bias)
+    take()
+    cpu = dp.modekill_run(ts, z, "cpu", keep_order=1, max_rounds=1,
+                          opt_steps=2, bias_engine=bias)
+    out = {"phase": "dynamics", "part": "d_modekill",
+           "start": "flagship TS under keep -1.0 a.u. on C2-C3 at its length",
+           "imaginary_modes_before": n_imag,
+           "seconds": full["seconds"],
+           "imaginary_modes_after": full["n_imaginary"],
+           "energy_after": full["energy"],
+           "first_round_abs_e_diff_cpu_vs_card": abs(short["energy"]
+                                                     - cpu["energy"]),
+           "first_round_max_abs_x_diff_bohr": float(
+               np.abs(short["coords"] - cpu["coords"]).max()),
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(n_imag == 2 and full["n_imaginary"] <= 1
+         and np.isfinite(full["energy"])
+         and out["first_round_abs_e_diff_cpu_vs_card"] <= 1e-8
+         and out["first_round_max_abs_x_diff_bohr"] <= 1e-7,
+         "(d) modekill", out)
+    tmp.cleanup()
+    emit({"phase": "dynamics_done",
+          "seconds": time.perf_counter() - t_phase,
+          "kernel_launches": totals, "card": card})
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -813,7 +1152,8 @@ def main():
     from multioptpy_tpu_torch.flagship import saddle_start
     main_path += [full_launches,
                   phase_methods(jc, card, saddle_start(full_res)),
-                  phase_reaction_paths(jc, card, full_res, rows)]
+                  phase_reaction_paths(jc, card, full_res, rows),
+                  phase_dynamics_and_double_ended(jc, card, full_res)]
 
     kernels = []
     for variant in jc.VARIANTS:

@@ -1,13 +1,48 @@
-"""IRC curvature analysis (host-side numpy).
+"""Path embeddings and IRC curvature analysis (host-side numpy).
 
-Counterpart of the IRC part of `multioptpy_tpu/analysis/pes.py`: the
-per-point curvature properties the euler/rk4 IRC integrators report, the
-per-branch table `ircmain` writes, and the path bending angles. The path
-embeddings and the convergence analysis arrive with ROADMAP Queue 1 item
-15.
+Counterpart of `multioptpy_tpu/analysis/pes.py`: the 2-D embeddings of a
+trajectory that `mdmain -cmds/-pca` write (classical MDS of the frames'
+RMSD, PCA of their displacements), the per-point curvature properties the
+euler/rk4 IRC integrators report, the per-branch table `ircmain` writes,
+and the path bending angles. The convergence analysis arrives with
+ROADMAP Queue 1 item 15.
 """
 
+from typing import NamedTuple
+
 import numpy as np
+
+
+class Embedding(NamedTuple):
+    coords_2d: np.ndarray      # (S, 2)
+    explained: np.ndarray      # variance ratios
+
+
+def cmds_path_analysis(trajectory):
+    """Classical MDS of the pairwise frame RMSD -> 2-D path embedding."""
+    frames = np.asarray(trajectory).reshape(len(trajectory), -1)
+    s = len(frames)
+    d2 = (np.sum((frames[:, None] - frames[None, :]) ** 2, axis=-1)
+          / frames.shape[1])
+    j = np.eye(s) - np.ones((s, s)) / s
+    b = -0.5 * j @ d2 @ j
+    w, v = np.linalg.eigh(b)
+    order = np.argsort(w)[::-1]
+    w, v = w[order], v[:, order]
+    w_pos = np.maximum(w[:2], 0.0)
+    coords = v[:, :2] * np.sqrt(w_pos)[None, :]
+    total = np.sum(np.maximum(w, 0.0)) + 1e-30
+    return Embedding(coords_2d=coords, explained=w_pos / total)
+
+
+def pca_path_analysis(trajectory):
+    """PCA of the trajectory's displacement covariance -> 2-D embedding."""
+    frames = np.asarray(trajectory).reshape(len(trajectory), -1)
+    centered = frames - frames.mean(axis=0)
+    u, s, _ = np.linalg.svd(centered, full_matrices=False)
+    coords = u[:, :2] * s[:2]
+    explained = s ** 2 / (np.sum(s ** 2) + 1e-30)
+    return Embedding(coords_2d=coords, explained=explained[:2])
 
 
 def irc_curvature_properties(grad_mw, prev_grad_mw, hessian_mw, step_size):

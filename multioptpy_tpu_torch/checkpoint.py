@@ -5,13 +5,15 @@ npz file holding every tensor leaf as a numpy array plus a JSON manifest of
 the tree (NamedTuples by class name, tuples, lists, dicts). No pickle. A
 `torch.Generator` leaf (the RL stepper's draw stream) is stored as its
 state bytes and rebuilt on the loading device. Tensors come back on the
-device the caller names.
+device the caller names, the CUDA card unless asked for the CPU.
 """
 
 import json
 
 import numpy as np
 import torch
+
+from multioptpy_tpu_torch.device import resolve_device
 
 _NAMEDTUPLES = {}
 
@@ -65,9 +67,10 @@ def save_checkpoint(path, state, meta=None):
         np.savez(f, __manifest__=manifest, **arrays)
 
 
-def load_checkpoint(path, device="cpu"):
-    """-> (state, meta), tensors on `device`. NamedTuple nodes are rebuilt
-    from the registered classes."""
+def load_checkpoint(path, device=None):
+    """-> (state, meta), tensors on `device` (None means the CUDA card).
+    NamedTuple nodes are rebuilt from the registered classes."""
+    device = resolve_device(device)
     types = state_types()
     with np.load(path, allow_pickle=False) as data:
         manifest = json.loads(str(data["__manifest__"]))

@@ -1,14 +1,17 @@
 """Command-line entry points of the port: `optmain`, `nebmain`,
-`ircmain` and `run_autots`.
+`ircmain`, `run_autots`, `mdmain` and `ieipmain`.
 
 Counterpart of `multioptpy_tpu/cli.py` for the flags the ported engines
 serve: the input and its charge and multiplicity, the SQM/SQM2, LJ and
 Muller-Brown backends, the optimizer (`-opt` with one method, or two for
-RMS-force switching), Hessian, convergence and trust flags, AFIR (`-ma`),
-the float64 switch, `optmain`'s `-diis`, `-delta`, constraints (`-fix`,
-`-pc`, `-gfix`) and guards (`-sc`, `-dc`, `-negeigval`), every flag of
-`nebmain` but `-spng` (item 15) and `-cfbenm` (item 13), `ircmain`'s `-im`
-and `-is`, and `run_autots`'s `-cfg`, `-prod`, `-nimg` and `-p`.
+RMS-force switching), Hessian, convergence and trust flags, every bias
+potential flag of the reference (`-ma -kp -kpv2 -akp -ka -kav2 -kda -kdav2
+-kdac -kopa -kopav2 -wp -wwp -awp -vpp -vpwp -rp -rpv2 -rpg -cp -fp -up
+-nrp -lmefp -lmefpv2 -esp -espap -brp -aerp -aerpv2 -smp -metad`), the
+float64 switch, `optmain`'s `-diis`, `-delta`, constraints (`-fix`, `-pc`,
+`-gfix`) and guards (`-sc`, `-dc`, `-negeigval`), every flag of `nebmain`
+but `-spng` (item 15), `ircmain`'s `-im` and `-is`, `run_autots`'s `-cfg`,
+`-prod`, `-nimg` and `-p`, and every flag of `mdmain` and `ieipmain`.
 `--device` picks the card (default `cuda`) or the CPU. Any other flag of
 the reference exits with status 2 and names ROADMAP Queue 1 item 18. Atom
 selections accept the "1,2,4-7" syntax.
@@ -74,8 +77,103 @@ def _base_parser(description):
                    const="fischerd3old", default=None,
                    help="alias of -mh; the bare flag means fischerd3old, "
                         "as in the reference")
+    # bias potentials: the reference's flag names and argument orders
     p.add_argument("-ma", "--manual_AFIR", nargs="*", default=[],
-                   help="AFIR: repeated [gamma(kJ/mol) fragm1 fragm2]")
+                   help="gamma(kJ/mol) fragm1 fragm2 (repeatable triplets)")
+    p.add_argument("-rp", "--repulsive_potential", nargs="*", default=[],
+                   help="well_scale dist_scale fragm1 fragm2 scale|value "
+                        "(repeatable quintets; UFF LJ)")
+    p.add_argument("-rpv2", "--repulsive_potential_v2", nargs="*",
+                   default=[],
+                   help="well dist length(ang) const_rep const_attr "
+                        "order_rep order_attr center(1,2) target(3-5) "
+                        "scale|value (repeatable 10-lets; probe-point LJ)")
+    p.add_argument("-rpg", "--repulsive_potential_gaussian", nargs="*",
+                   default=[],
+                   help="LJ_well(kJ/mol) LJ_dist(ang) gau_well(kJ/mol) "
+                        "gau_dist(ang) gau_range(ang) fragm1 fragm2 "
+                        "(repeatable 7-lets)")
+    p.add_argument("-cp", "--cone_potential", nargs="*", default=[],
+                   help="well(kJ/mol) dist(ang) cone_angle(deg) center "
+                        "three_atoms(2,3,4) target(5-9) (repeatable 6-lets)")
+    p.add_argument("-fp", "--flux_potential", nargs="*", default=[],
+                   help="kx,ky,kz px,py,pz x,y,z(ang) fragm "
+                        "(repeatable quadruplets)")
+    p.add_argument("-kp", "--keep_pot", nargs="*", default=[],
+                   help="k r0(ang) atom1,atom2 (repeatable triplets)")
+    p.add_argument("-kpv2", "--keep_pot_v2", nargs="*", default=[],
+                   help="k r0(ang) fragm1 fragm2 (repeatable quadruplets)")
+    p.add_argument("-akp", "--anharmonic_keep_pot", nargs="*", default=[],
+                   help="De(a.u.) k(a.u.) r0(ang) atom1,atom2 "
+                        "(repeatable quadruplets; Morse)")
+    p.add_argument("-ka", "--keep_angle", nargs="*", default=[],
+                   help="k angle(deg) a1,a2,a3")
+    p.add_argument("-kav2", "--keep_angle_v2", nargs="*", default=[],
+                   help="k angle(deg) fragm1 fragm2 fragm3 "
+                        "(repeatable quintets)")
+    p.add_argument("-up", "--universal_potential", nargs="*", default=[],
+                   help="potential(kJ/mol) target_atoms (repeatable pairs)")
+    p.add_argument("-kda", "--keep_dihedral_angle", nargs="*", default=[],
+                   help="k angle(deg) a1,a2,a3,a4")
+    p.add_argument("-kdav2", "--keep_dihedral_angle_v2", nargs="*",
+                   default=[],
+                   help="k angle(deg) f1 f2 f3 f4 (repeatable 6-lets)")
+    p.add_argument("-kdac", "--keep_dihedral_angle_cos", nargs="*",
+                   default=[],
+                   help="k n angle(deg) f1 f2 f3 f4 (repeatable 7-lets)")
+    p.add_argument("-kopa", "--keep_out_of_plain_angle", nargs="*",
+                   default=[],
+                   help="k angle(deg) a1,a2,a3,a4 (repeatable triplets)")
+    p.add_argument("-kopav2", "--keep_out_of_plain_angle_v2", nargs="*",
+                   default=[],
+                   help="k angle(deg) f1 f2 f3 f4 (repeatable 6-lets)")
+    p.add_argument("-vpp", "--void_point_pot", nargs="*", default=[],
+                   help="k r0(ang) x,y,z(ang) atoms order "
+                        "(repeatable quintets)")
+    p.add_argument("-brp", "--bond_range_potential", nargs="*", default=[],
+                   help="k_upper k_lower upper(ang) lower(ang) fragm1 "
+                        "fragm2 (repeatable 6-lets)")
+    p.add_argument("-wp", "--well_pot", nargs="*", default=[],
+                   help="wall(kJ/mol) fragm1 fragm2 a,b,c,d(ang) "
+                        "(repeatable quadruplets)")
+    p.add_argument("-wwp", "--wall_well_pot", nargs="*", default=[],
+                   help="wall(kJ/mol) x|y|z a,b,c,d(ang) atoms "
+                        "(repeatable quadruplets)")
+    p.add_argument("-vpwp", "--void_point_well_pot", nargs="*", default=[],
+                   help="wall(kJ/mol) x,y,z(ang) a,b,c,d(ang) atoms "
+                        "(repeatable quadruplets)")
+    p.add_argument("-awp", "--around_well_pot", nargs="*", default=[],
+                   help="wall(kJ/mol) center_fragm a,b,c,d(ang) atoms "
+                        "(repeatable quadruplets)")
+    p.add_argument("-metad", "--metadynamics", nargs="*", default=[],
+                   help="bond height(kJ/mol) width(ang) a1,a2 "
+                        "(repeatable quadruplets; gaussian hills)")
+    p.add_argument("-lmefp", "--linear_mechano_force_pot", nargs="*",
+                   default=[],
+                   help="force(pN) atoms1 atoms2 (repeatable triplets)")
+    p.add_argument("-lmefpv2", "--linear_mechano_force_pot_v2", nargs="*",
+                   default=[],
+                   help="force(pN) atom_pair (repeatable pairs)")
+    p.add_argument("-aerpv2", "--asym_ellipsoid_v2", nargs="*", default=[],
+                   help="same syntax as -aerp (free-parameter variant)")
+    p.add_argument("-nrp", "--nano_reactor_potential", nargs="*",
+                   default=[],
+                   help="inner(ang) outer(ang) t_contract(ps) t_expand(ps) "
+                        "k_contract(kcal/mol/A^2) k_expand (one 6-let)")
+    p.add_argument("-esp", "--electrostatic_potential", nargs="*",
+                   default=[],
+                   help="charge_scale fragm1 fragm2 (repeatable triplets; "
+                        "UFF effective charges)")
+    p.add_argument("-espap", "--electrostatic_potential_atom_pair",
+                   nargs="*", default=[],
+                   help="charge_scale atoms (repeatable pairs)")
+    p.add_argument("-aerp", "--asym_ellipsoid", nargs="*", default=[],
+                   help="eps(kJ/mol) sig_xp,xm,yp,ym,zp,zm(ang) dist(ang) "
+                        "root,lj offtgt|none (repeatable quintets; GNB "
+                        "asymmetric ellipsoidal LJ)")
+    p.add_argument("-smp", "--spacer_model_potential", nargs="*", default=[],
+                   help="depth(kJ/mol) sigma(ang) cavity_scaling n_particles "
+                        "target_atoms (repeatable quintets)")
     p.add_argument("-x64", "--float64", action="store_true", default=True)
     p.add_argument("-out", "--output_dir", default=None)
     p.add_argument("-elec", "--electronic_charge", type=int, default=None)
@@ -134,16 +232,217 @@ def _make_calculator(args):
                           device=args.device)
 
 
+def _asym_ellipsoid(vals, z):
+    """-aerp / -aerpv2 quintets -> one asym_ellipsoid potential."""
+    from multioptpy_tpu_torch.potentials import get_potential
+
+    atoms, offtgt, eps_l, sig_l, dist_l = [], [], [], [], []
+    for i in range(0, len(vals), 5):
+        eps_l.append(float(vals[i]))
+        sig_l.append([float(s) for s in vals[i + 1].split(",")])
+        dist_l.append(float(vals[i + 2]))
+        pair = num_parse(vals[i + 3])
+        atoms.append((pair[0], pair[1]))
+        off = vals[i + 4]
+        offtgt.append(num_parse(off) if off not in ("0", "none") else [])
+    return get_potential("asym_ellipsoid", atoms=atoms, offtgt=offtgt,
+                         eps=eps_l, sig=sig_l, dist=dist_l,
+                         element_z=np.asarray(z))
+
+
 def _make_bias(args, z):
-    """-ma triples -> BiasEngine (None without them)."""
+    """The bias flags -> BiasEngine (None without them)."""
     from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
 
+    pots = []
     ma = args.manual_AFIR
-    pots = [get_potential("afir", gamma=float(ma[i]),
-                          fragm_1=num_parse(ma[i + 1]),
-                          fragm_2=num_parse(ma[i + 2]),
-                          element_z=np.asarray(z))
-            for i in range(0, len(ma) - 2, 3)]
+    for i in range(0, len(ma), 3):
+        pots.append(get_potential(
+            "afir", gamma=float(ma[i]), fragm_1=num_parse(ma[i + 1]),
+            fragm_2=num_parse(ma[i + 2]), element_z=np.asarray(z)))
+    kp = args.keep_pot
+    for i in range(0, len(kp), 3):
+        pots.append(get_potential(
+            "keep", spring_const=float(kp[i]), distance=float(kp[i + 1]),
+            atom_pair=num_parse(kp[i + 2])))
+    ka = args.keep_angle
+    for i in range(0, len(ka), 3):
+        pots.append(get_potential(
+            "keep_angle", spring_const=float(ka[i]), angle=float(ka[i + 1]),
+            atoms=num_parse(ka[i + 2])))
+    kda = args.keep_dihedral_angle
+    for i in range(0, len(kda), 3):
+        pots.append(get_potential(
+            "keep_dihedral", spring_const=float(kda[i]),
+            angle=float(kda[i + 1]), atoms=num_parse(kda[i + 2])))
+
+    def chunks(flag, n, vals=None):
+        vals = vals if vals is not None else getattr(args, flag, []) or []
+        if len(vals) % n:
+            raise SystemExit(f"error: -{flag} takes groups of {n} arguments")
+        for i in range(0, len(vals), n):
+            yield vals[i:i + n]
+
+    zz = np.asarray(z)
+    for ws, ds, f1, f2, mode in chunks("repulsive_potential", 5):
+        name = ("lj_repulsive_scale" if mode == "scale"
+                else "lj_repulsive_value")
+        kwargs = (dict(well_scale=float(ws), dist_scale=float(ds))
+                  if mode == "scale"
+                  else dict(well_value_kjmol=float(ws),
+                            dist_value_ang=float(ds)))
+        pots.append(get_potential(name, fragm_1=num_parse(f1),
+                                  fragm_2=num_parse(f2), element_z=zz,
+                                  **kwargs))
+    for (w, d, ln, cr, ca, orp, oat, ctr, tgt,
+         mode) in chunks("repulsive_potential_v2", 10):
+        pots.append(get_potential(
+            "lj_repulsive_v2_probe", well=float(w), dist=float(d),
+            length_ang=float(ln), const_rep=float(cr), const_attr=float(ca),
+            order_rep=float(orp), order_attr=float(oat),
+            center=num_parse(ctr), target=num_parse(tgt), element_z=zz,
+            mode=mode))
+    for (lw, ld, gw, gd, gr, f1,
+         f2) in chunks("repulsive_potential_gaussian", 7):
+        pots.append(get_potential(
+            "lj_repulsive_gaussian", well_depth=float(lw), dist=float(ld),
+            gau_well_depth=float(gw), gau_dist=float(gd),
+            gau_range=float(gr), fragm_1=num_parse(f1),
+            fragm_2=num_parse(f2), element_z=zz))
+    for w, d, ang, ctr, three, tgt in chunks("cone_potential", 6):
+        pots.append(get_potential(
+            "cone", well_value=float(w), dist_value=float(d),
+            cone_angle=float(ang), center=num_parse(ctr)[0],
+            three_atoms=num_parse(three), target=num_parse(tgt),
+            element_z=zz))
+    for ks, ps, xyz, frag in chunks("flux_potential", 4):
+        pots.append(get_potential(
+            "flux", const=[float(v) for v in ks.split(",")],
+            order=[float(v) for v in ps.split(",")],
+            direction=[float(v) for v in xyz.split(",")],
+            atoms=num_parse(frag)))
+    for k, r0, f1, f2 in chunks("keep_pot_v2", 4):
+        pots.append(get_potential(
+            "keep_v2", spring_const=float(k), distance=float(r0),
+            fragm_1=num_parse(f1), fragm_2=num_parse(f2)))
+    for de, k, r0, pair in chunks("anharmonic_keep_pot", 4):
+        pots.append(get_potential(
+            "keep_anharmonic", well_depth=float(de), spring_const=float(k),
+            distance=float(r0), atom_pair=num_parse(pair)))
+    for k, ang, f1, f2, f3 in chunks("keep_angle_v2", 5):
+        pots.append(get_potential(
+            "keep_angle_v2", spring_const=float(k), angle=float(ang),
+            fragm_1=num_parse(f1), fragm_2=num_parse(f2),
+            fragm_3=num_parse(f3)))
+    for const, atoms in chunks("universal_potential", 2):
+        pots.append(get_potential("universal", const=float(const),
+                                  atoms=num_parse(atoms)))
+    for k, ang, f1, f2, f3, f4 in chunks("keep_dihedral_angle_v2", 6):
+        pots.append(get_potential(
+            "keep_dihedral_v2", spring_const=float(k), angle=float(ang),
+            fragm_1=num_parse(f1), fragm_2=num_parse(f2),
+            fragm_3=num_parse(f3), fragm_4=num_parse(f4)))
+    for k, n, ang, f1, f2, f3, f4 in chunks("keep_dihedral_angle_cos", 7):
+        pots.append(get_potential(
+            "keep_dihedral_cos", potential_const=float(k),
+            multiplicity=float(n), angle=float(ang), fragm_1=num_parse(f1),
+            fragm_2=num_parse(f2), fragm_3=num_parse(f3),
+            fragm_4=num_parse(f4)))
+    for k, ang, atoms in chunks("keep_out_of_plain_angle", 3):
+        # the flag names the center first; the potential takes it second,
+        # so reorder (c, n1, n2, n3) -> (n1, c, n2, n3)
+        a = num_parse(atoms)
+        pots.append(get_potential(
+            "keep_out_of_plane", spring_const=float(k), angle=float(ang),
+            atoms=[a[1], a[0], a[2], a[3]]))
+    for k, ang, f1, f2, f3, f4 in chunks("keep_out_of_plain_angle_v2", 6):
+        # same center-first -> center-second reordering as -kopa
+        pots.append(get_potential(
+            "keep_out_of_plane_v2", spring_const=float(k), angle=float(ang),
+            fragm_1=num_parse(f2), fragm_2=num_parse(f1),
+            fragm_3=num_parse(f3), fragm_4=num_parse(f4)))
+    for k, r0, xyz, atoms, order in chunks("void_point_pot", 5):
+        pots.append(get_potential(
+            "void_point", spring_const=float(k), distance=float(r0),
+            order=float(order), point=[float(v) for v in xyz.split(",")],
+            atom=num_parse(atoms)))
+    for ku, kl, up, lo, f1, f2 in chunks("bond_range_potential", 6):
+        pots.append(get_potential(
+            "value_range", upper_const=float(ku), lower_const=float(kl),
+            upper_distance=float(up), lower_distance=float(lo),
+            fragm_1=num_parse(f1), fragm_2=num_parse(f2)))
+    for w, f1, f2, lims in chunks("well_pot", 4):
+        pots.append(get_potential(
+            "well", wall_energy=float(w),
+            limits=[float(v) for v in lims.split(",")],
+            fragm_1=num_parse(f1), fragm_2=num_parse(f2)))
+    for w, axis, lims, atoms in chunks("wall_well_pot", 4):
+        pots.append(get_potential(
+            "well_wall", wall_energy=float(w),
+            limits=[float(v) for v in lims.split(",")], axis=axis,
+            atoms=num_parse(atoms)))
+    for w, xyz, lims, atoms in chunks("void_point_well_pot", 4):
+        pots.append(get_potential(
+            "well_vp", wall_energy=float(w),
+            limits=[float(v) for v in lims.split(",")],
+            point=[float(v) for v in xyz.split(",")],
+            atoms=num_parse(atoms)))
+    for w, ctr, lims, atoms in chunks("around_well_pot", 4):
+        pots.append(get_potential(
+            "well_around", wall_energy=float(w),
+            limits=[float(v) for v in lims.split(",")],
+            center_fragm=num_parse(ctr), atoms=num_parse(atoms)))
+    for kind, h, wd, atoms in chunks("metadynamics", 4):
+        if kind != "bond":
+            raise SystemExit("error: -metad supports the 'bond' collective "
+                             "variable (gaussian hills on a pair distance)")
+        pots.append(get_potential(
+            "gaussian_metadyn", height_kjmol=float(h), width_ang=float(wd),
+            atom_pair=num_parse(atoms)))
+    for f, a1, a2 in chunks("linear_mechano_force_pot", 3):
+        pots.append(get_potential(
+            "mechano_force", force_pn=float(f), atoms_1=num_parse(a1),
+            atoms_2=num_parse(a2)))
+    for f, pair in chunks("linear_mechano_force_pot_v2", 2):
+        pots.append(get_potential(
+            "mechano_force_v2", force_pn=float(f), atom_pair=num_parse(pair)))
+    for s, f1, f2 in chunks("electrostatic_potential", 3):
+        pots.append(get_potential(
+            "electrostatic_fragment", charge_scale=float(s),
+            fragm_1=num_parse(f1), fragm_2=num_parse(f2), element_z=zz))
+    for s, atoms in chunks("electrostatic_potential_atom_pair", 2):
+        pots.append(get_potential(
+            "electrostatic_atom_pair", charge_scale=float(s),
+            atoms=num_parse(atoms), element_z=zz))
+    nrp = getattr(args, "nano_reactor_potential", []) or []
+    for inner, outer, tc, te, kc, ke in chunks("nano_reactor_potential", 6,
+                                               nrp):
+        pots.append(get_potential(
+            "nanoreactor", inner_wall_ang=float(inner),
+            outer_wall_ang=float(outer), contraction_time=float(tc),
+            expansion_time=float(te), contraction_k=float(kc),
+            expansion_k=float(ke), element_z=zz))
+    # asymmetric ellipsoidal LJ probes: eps(kJ/mol) sig_xp,xm,yp,ym,zp,zm
+    # (ang) dist(ang) root,lj offtgt
+    aerp = getattr(args, "asym_ellipsoid", []) or []
+    if aerp and len(aerp) % 5 != 0:
+        raise SystemExit("error: -aerp takes quintets: eps sig6 dist "
+                         "root,lj offtgt|none")
+    smp_check = getattr(args, "spacer_model_potential", []) or []
+    if smp_check and len(smp_check) % 5 != 0:
+        raise SystemExit("error: -smp takes quintets: depth sigma scaling "
+                         "n_particles target_atoms")
+    # -aerpv2 (the free-parameter variant) has the same syntax
+    for vals in (aerp, getattr(args, "asym_ellipsoid_v2", []) or []):
+        if vals:
+            pots.append(_asym_ellipsoid(vals, z))
+    # spacer implicit-solvent particles: depth(kJ/mol) sigma(ang) cavity_scaling n_particles target_atoms
+    smp = getattr(args, "spacer_model_potential", []) or []
+    for i in range(0, len(smp), 5):
+        pots.append(get_potential(
+            "spacer", depth_kjmol=float(smp[i]), sigma_ang=float(smp[i + 1]),
+            cavity_scaling=float(smp[i + 2]), n_particles=int(smp[i + 3]),
+            target=num_parse(smp[i + 4]), element_z=np.asarray(z)))
     return BiasEngine(pots) if pots else None
 
 
@@ -515,8 +814,8 @@ def _neb_parser():
                    help="energy-profile plot (ROADMAP Queue 1 item 15)")
     p.add_argument("-idpp", "--use_idpp", action="store_true")
     p.add_argument("-cfbenm", "--use_cfb_enm", action="store_true",
-                   help="flat-bottom elastic-network preprocessing "
-                        "(ROADMAP Queue 1 item 13)")
+                   help="flat-bottom elastic-network preprocessing of the "
+                        "initial path")
     for flag, name, scheme in REDISTRIBUTION_FLAGS:
         p.add_argument(flag, "--" + name, type=int, default=0,
                        help=f"in-loop '{scheme}' redistribution interval")
@@ -660,10 +959,30 @@ def _neb_config(args):
                      spline_ci_interval=sci_interval)
 
 
+def _cfb_enm_relax(args, path0, z):
+    """-cfbenm: 20 FIRE steps of each interior image under a flat-bottom
+    elastic network on the first image's bonds."""
+    from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
+    from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
+
+    enm = BiasEngine([get_potential(
+        "cfb_enm", reference_coords=path0[0].cpu().numpy(), element_z=z)])
+    calc = _make_calculator(args)
+    relaxed = [path0[0]]
+    for img in path0[1:-1]:
+        relaxed.append(optimize(calc, img, z, bias_engine=enm,
+                                config=OptimizeConfig(method="fire",
+                                                      nsteps=20),
+                                device=path0.device).coords)
+    relaxed.append(path0[-1])
+    return torch.stack(relaxed)
+
+
 def neb_job(argv=None):
     """nebmain's flags as a band run: (args, symbols, the initial path
     (I,N,3) Bohr on the flags' device, z, NEBConfig, and the keywords of
-    `aneb` under -aneb, else None). Exits 2 on -spng and -cfbenm."""
+    `aneb` under -aneb, else None). Exits 2 on -spng; under -cfbenm the
+    interior images are relaxed first."""
     from multioptpy_tpu_torch.device import resolve_device
     from multioptpy_tpu_torch.periodic import symbols_to_z
 
@@ -672,11 +991,10 @@ def neb_job(argv=None):
     if args.save_pict:
         p.exit(2, f"{p.prog}: not ported: -spng (the plot writer arrives "
                   "with ROADMAP Queue 1 item 15)\n")
-    if args.use_cfb_enm:
-        p.exit(2, f"{p.prog}: not ported: -cfbenm (the cfb_enm potential "
-                  "arrives with ROADMAP Queue 1 item 13)\n")
     symbols, path0 = _neb_initial_path(args, resolve_device(args.device))
     z = np.asarray(symbols_to_z(symbols))
+    if args.use_cfb_enm:
+        path0 = _cfb_enm_relax(args, path0, z)
     aneb_kw = None
     if args.adaptive_neb is not None:
         # -aneb [interpolation_num frequency]: in-run densification
@@ -785,17 +1103,284 @@ def run_ircmain(argv=None):
     return 0
 
 
+def _md_constraints(cc):
+    """-cc [value atoms ...] -> SHAKE Constraints (None without them); the
+    kind follows the atom count: 2 distance, 3 angle, 4 dihedral."""
+    from multioptpy_tpu_torch.constraints import Constraints
+
+    if not cc:
+        return None
+    bonds, angles, dihedrals = [], [], []
+    i = 0
+    while i + 1 < len(cc):
+        val = float(cc[i])
+        atoms = num_parse(cc[i + 1])
+        if len(atoms) == 2:
+            bonds.append((atoms[0], atoms[1], val))
+        elif len(atoms) == 3:
+            angles.append((atoms[0], atoms[1], atoms[2], val))
+        else:
+            dihedrals.append((atoms[0], atoms[1], atoms[2], atoms[3], val))
+        i += 2
+    return Constraints(bonds=bonds, angles=angles, dihedrals=dihedrals)
+
+
+def run_mdmain(argv=None):
+    """Molecular dynamics: md_traj.xyz and md_energies.csv (potential
+    energy and temperature per step) in `<input>_md/`, one pair per
+    trajectory under -ntraj (suffix _k); -cmds / -pca add the embedding of
+    the first trajectory. -ct runs piecewise-constant temperature chunks
+    with the velocities carried across."""
+    p = _base_parser("multioptpy_tpu_torch molecular dynamics")
+    p.add_argument("-temp", "--temperature", type=float, default=300.0)
+    p.add_argument("-dt", "--timestep", type=float, default=0.5,
+                   help="time step in fs")
+    p.add_argument("-thermo", "-mt", "--thermostat", default="nosehoover",
+                   help="none | nosehoover | nosehooverchain | langevin | "
+                        "berendsen | velocityverlet")
+    p.add_argument("-time", "--md_nstep", type=int, default=None,
+                   help="number of MD steps (overrides -ns)")
+    p.add_argument("-ts", "--timestep_au", type=float, default=None,
+                   help="time step in atomic units (overrides -dt)")
+    p.add_argument("-press", "--pressure", type=float, default=101.3,
+                   help="pressure in kPa (recorded only: no barostat)")
+    p.add_argument("-ntraj", "--n_trajectories", type=int, default=1,
+                   help="independent trajectories, run one after another")
+    p.add_argument("-ct", "--change_temperature", nargs="*", default=[],
+                   help="temperature schedule [step1 T1 step2 T2 ...]")
+    p.add_argument("-cc", "--constraint_condition", nargs="*", default=[],
+                   help="SHAKE distance/angle/dihedral constraints: "
+                        "[value atoms ...]")
+    p.add_argument("-pbc", "--pbc", nargs="*", default=[],
+                   help="periodic cell lengths in ang")
+    p.add_argument("-cmds", "--cmds", action="store_true",
+                   help="CMDS embedding of the trajectory")
+    p.add_argument("-pca", "--pca", action="store_true",
+                   help="PCA embedding of the trajectory")
+    args = _parse(p, argv)
+    if args.md_nstep is not None:
+        args.NSTEP = args.md_nstep
+    if args.timestep_au is not None:
+        args.timestep = args.timestep_au * 2.4188843265857e-2  # a.u. -> fs
+    if args.thermostat == "velocityverlet":
+        args.thermostat = "none"
+    symbols, coords, z = _load_system(args)
+    calc = _make_calculator(args)
+    bias = _make_bias(args, z)
+    from multioptpy_tpu_torch.drivers.md import MDConfig, run_md
+    from multioptpy_tpu_torch.io.xyz import write_trajectory
+    from multioptpy_tpu_torch.units import BOHR2ANGSTROM
+
+    cons = _md_constraints(list(args.constraint_condition))
+    # -ct [t1 T1 t2 T2 ...] -> chunks at piecewise-constant temperature
+    schedule = [(0, args.temperature)]
+    ct = list(args.change_temperature)
+    for i in range(0, len(ct) - 1, 2):
+        schedule.append((int(float(ct[i])), float(ct[i + 1])))
+    schedule.append((args.NSTEP, None))
+
+    out = _outdir(args, "_md")
+    all_traj, all_t = [], []
+    for itraj in range(max(1, args.n_trajectories)):
+        vel = None
+        x = coords
+        trajs, es, ts_ = [], [], []
+        for (t0, temp), (t1, _) in zip(schedule, schedule[1:]):
+            n = t1 - t0
+            if n <= 0:
+                continue
+            res = run_md(calc, x, z, MDConfig(
+                timestep_fs=args.timestep, n_steps=n, temperature=temp,
+                thermostat=args.thermostat, seed=itraj,
+                pbc_box_ang=tuple(float(v) for v in (args.pbc or []))),
+                bias_engine=bias, velocities=vel, constraints=cons,
+                device=args.device)
+            x, vel = res.final.coords, res.final.velocities
+            trajs.append(res.trajectory)
+            es.append(res.energies)
+            ts_.append(res.temperatures)
+        traj = np.concatenate(trajs)
+        suffix = f"_{itraj}" if args.n_trajectories > 1 else ""
+        write_trajectory(os.path.join(out, f"md_traj{suffix}.xyz"), symbols,
+                         traj * BOHR2ANGSTROM)
+        np.savetxt(os.path.join(out, f"md_energies{suffix}.csv"),
+                   np.stack([np.concatenate(es), np.concatenate(ts_)], 1),
+                   header="potential_hartree temperature_K")
+        all_traj.append(traj)
+        all_t.append(np.concatenate(ts_))
+    from multioptpy_tpu_torch.analysis.pes import (cmds_path_analysis,
+                                                   pca_path_analysis)
+    for name, embed in (("cmds", cmds_path_analysis),
+                        ("pca", pca_path_analysis)):
+        if getattr(args, name):
+            np.savetxt(os.path.join(out, f"{name}_traj.csv"),
+                       embed(all_traj[0]).coords_2d, header=f"{name}_2d")
+    print(f"MD finished: {args.NSTEP} steps x {max(1, args.n_trajectories)} "
+          f"traj; <T> = {float(np.mean(all_t[0])):.1f} K -> {out}/")
+    return 0
+
+
+def _discover_pair(args):
+    """When `input` is no file: a prefix or a directory holding a
+    *_A.xyz / *_B.xyz pair (the first two *_[A-Z].xyz matches)."""
+    import glob
+
+    if os.path.isfile(args.input):
+        return
+    matches = sorted(m for pat in (os.path.join(args.input, "*_[A-Z].xyz"),
+                                   args.input + "*_[A-Z].xyz")
+                     for m in glob.glob(pat))
+    if len(matches) >= 2:
+        args.input = matches[0]
+        if args.end_input is None:
+            args.end_input = matches[1]
+
+
+def run_ieipmain(argv=None):
+    """Double-ended and single-ended TS searches: ts_guess.xyz in
+    `<input>_ieip/`. `-em` picks the engine (eip, dimer, spring_pair, gnt,
+    addf, 2pshs), as do -use_dimer, -use_spm, -gnt, -addf and -2pshs. The
+    bias flags are parsed and not applied, as in the reference."""
+    import math
+
+    p = _base_parser("multioptpy_tpu_torch iEIP / double-ended methods")
+    p.add_argument("-i2", "--end_input", default=None,
+                   help="product xyz (required except for -addf)")
+    p.add_argument("-em", "--engine", default=None,
+                   help="eip | dimer | spring_pair | gnt | addf | 2pshs")
+    p.add_argument("-use_dimer", "--use_dimer", action="store_true",
+                   help="dimer method for the TS direction")
+    p.add_argument("-dimer_sep", "--dimer_separation", type=float,
+                   default=1e-4)
+    p.add_argument("-dimer_trial_angle", "--dimer_trial_angle", type=float,
+                   default=math.pi / 32.0)
+    p.add_argument("-dimer_maxiter", "--dimer_max_iterations", type=int,
+                   default=1000)
+    p.add_argument("-use_spm", "--use_spm", action="store_true",
+                   help="spring-pair method")
+    p.add_argument("-gnt", "--use_gnt", action="store_true",
+                   help="growing Newton trajectory")
+    p.add_argument("-gnt_vec", "--gnt_vec", default=None,
+                   help="atoms defining the GNT direction, e.g. 1,2,3 "
+                        "(default: the reactant->product vector)")
+    p.add_argument("-gnt_step", "--gnt_step_len", type=float, default=0.5)
+    p.add_argument("-gnt_mi", "--gnt_microiter", type=int, default=25)
+    p.add_argument("-addf", "--use_addf", action="store_true",
+                   help="anharmonic-downward-distortion following "
+                        "(single-ended, -i2 not needed)")
+    p.add_argument("-addf_step", "--addf_step_size", type=float, default=0.1)
+    p.add_argument("-addf_num", "--addf_step_num", type=int, default=300)
+    p.add_argument("-addf_nadd", "--number_of_add", type=int, default=5)
+    p.add_argument("-2pshs", "--use_2pshs", action="store_true",
+                   help="two-point scaled hypersphere search")
+    p.add_argument("-2pshs_step", "--twoPshs_step_size", type=float,
+                   default=0.05)
+    p.add_argument("-2pshs_num", "--twoPshs_step_num", type=int, default=300)
+    p.add_argument("-beta", "--BETA", type=float, default=1.0,
+                   help="scale of the image-pair attraction")
+    args = _parse(p, argv)
+    _discover_pair(args)
+    symbols, coords, z = _load_system(args)
+    calc = _make_calculator(args)
+    from multioptpy_tpu_torch.io.xyz import read_xyz
+    from multioptpy_tpu_torch.units import ANGSTROM2BOHR
+
+    engine = args.engine
+    if engine is None:
+        engine = ("addf" if args.use_addf else "gnt" if args.use_gnt
+                  else "2pshs" if args.use_2pshs
+                  else "dimer" if args.use_dimer
+                  else "spring_pair" if args.use_spm else "eip")
+    out = _outdir(args, "_ieip")
+    end = None
+    if args.end_input:
+        _, end_ang = read_xyz(args.end_input)
+        end = torch.as_tensor(end_ang * ANGSTROM2BOHR, dtype=coords.dtype,
+                              device=coords.device)
+
+    if engine == "addf":
+        # multi-channel ADD following with a saddle refinement of each
+        # crossing; without a refined saddle, the best raw crossing
+        from multioptpy_tpu_torch.drivers.addf import ADDFConfig, addf_explore
+        ts_list, channels = addf_explore(calc, coords, z, ADDFConfig(
+            n_channels=args.number_of_add, r_step=args.addf_step_size,
+            n_spheres=args.addf_step_num), device=args.device)
+        if ts_list:
+            ts_guess, ts_e = ts_list[0].coords, ts_list[0].energy
+        elif not channels:
+            raise SystemExit(
+                "addf: no ADD channels explored (check -addf_nadd > 0 and "
+                "that the system has vibrational modes)")
+        else:
+            # genuine crossings (lowest first) before channels abandoned
+            # at a repulsive wall
+            crossed = [c for c in channels if c.crossed_ts]
+            best = (min(crossed, key=lambda c: c.ts_energy) if crossed
+                    else max(channels, key=lambda c: c.ts_energy))
+            ts_guess, ts_e = best.ts_guess, float(best.ts_energy)
+    elif engine == "gnt":
+        from multioptpy_tpu_torch.drivers.newton_traj import (
+            GNTConfig, newton_trajectory)
+        direction = None
+        if args.gnt_vec:
+            direction = torch.zeros_like(coords)
+            direction[[a - 1 for a in num_parse(args.gnt_vec)]] = 1.0
+        elif end is None:
+            raise SystemExit("gnt needs -i2 or -gnt_vec")
+        res = newton_trajectory(
+            calc, coords, z, direction=direction, product_coords=end,
+            config=GNTConfig(step_size=args.gnt_step_len,
+                             n_corrector=args.gnt_microiter),
+            device=args.device)
+        ts_guess, ts_e = res.ts_guess, float(res.ts_energy)
+    elif engine == "2pshs":
+        from multioptpy_tpu_torch.drivers.twopshs import (TwoPSHSConfig,
+                                                          twopshs)
+        if end is None:
+            raise SystemExit("2pshs needs -i2")
+        res = twopshs(calc, coords, end, z, TwoPSHSConfig(
+            r_step=args.twoPshs_step_size, n_spheres=args.twoPshs_step_num),
+            device=args.device)
+        ts_guess, ts_e = res.ts_guess, float(res.ts_energy)
+    else:
+        from multioptpy_tpu_torch.drivers.ieip import IEIPConfig, ieip
+        if end is None:
+            raise SystemExit(f"{engine} needs -i2 (a product geometry)")
+        ikw = {"engine": engine, "n_steps": args.NSTEP}
+        if args.BETA != 1.0:
+            ikw["pull_strength"] = IEIPConfig().pull_strength * args.BETA
+        if args.dimer_separation not in (None, 1e-4):
+            ikw["dimer_separation"] = args.dimer_separation
+        if engine == "dimer":
+            # -dimer_maxiter caps the loop; -dimer_trial_angle scales the
+            # rotation step relative to the default pi/32
+            if args.dimer_max_iterations:
+                ikw["n_steps"] = int(args.dimer_max_iterations)
+            ikw["dimer_rot_step"] = (0.5 * float(args.dimer_trial_angle)
+                                     / (math.pi / 32.0))
+        res = ieip(calc, coords, end, z, IEIPConfig(**ikw),
+                   device=args.device)
+        ts_guess, ts_e = res.ts_guess, float(res.ts_energy)
+
+    _write(os.path.join(out, "ts_guess.xyz"), symbols, ts_guess,
+           f"E = {ts_e:.10f}")
+    print(f"iEIP ({engine}): TS guess E = {ts_e:.8f} -> {out}/")
+    return 0
+
+
 COMMANDS = {
     "optmain": run_optmain,
     "nebmain": run_nebmain,
     "ircmain": run_ircmain,
     "run_autots": run_autots_cli,
+    "mdmain": run_mdmain,
+    "ieipmain": run_ieipmain,
 }
 
 # the reference's other commands, with the ROADMAP item that ports them
 UNPORTED_COMMANDS = {
-    "mdmain": 12, "confsearch": 16, "relaxedscan": 16, "orientsearch": 16,
-    "ieipmain": 12, "run_mapper": 16,
+    "confsearch": 16, "relaxedscan": 16, "orientsearch": 16,
+    "run_mapper": 16,
 }
 
 

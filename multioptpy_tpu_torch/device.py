@@ -3,6 +3,7 @@ timer its scripts share."""
 
 import time
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,23 @@ def resolve_device(device=None):
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def calc_device(calc, device=None, what="the run"):
+    """`device` resolved as `resolve_device` does; raises unless `calc`
+    lives there."""
+    dev = resolve_device(device)
+    if calc.device != dev:
+        raise ValueError(f"the calculator lives on {calc.device}, but {what} "
+                         f"was asked to run on {dev}")
+    return dev
+
+
+def on_device(x, dev):
+    """A tensor (detached) or array-like on `dev`, its dtype kept."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev)
+    return torch.as_tensor(np.asarray(x), device=dev)
 
 
 def cuda_ms(fn, reps=None):

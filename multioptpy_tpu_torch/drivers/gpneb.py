@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from multioptpy_tpu_torch.device import resolve_device
+from multioptpy_tpu_torch.device import calc_device, on_device
 from multioptpy_tpu_torch.drivers.neb import neb_forces
 from multioptpy_tpu_torch.ops import hosteval
 from multioptpy_tpu_torch.steppers.first_order import fire_init, fire_step
@@ -73,12 +73,8 @@ def gpneb(calc, path0, z, config=GPNEBConfig(), bias_engine=None,
         raise NotImplementedError(
             "the image-sharded GPNEB (mesh) arrives with ROADMAP Queue 1 "
             "item 17")
-    dev = resolve_device(device)
-    if calc.device != dev:
-        raise ValueError(f"the calculator lives on {calc.device}, but GPNEB "
-                         f"was asked to run on {dev}")
-    path = (path0.detach().to(dev) if isinstance(path0, torch.Tensor)
-            else torch.as_tensor(np.array(path0), device=dev))
+    dev = calc_device(calc, device, "GPNEB")
+    path = on_device(path0, dev)
     n_images, n_atoms, _ = path.shape
     d = n_atoms * 3
     kind = dict(dtype=path.dtype, device=dev)

@@ -8,8 +8,9 @@ corrector HPC. The forward and backward branches run as one batch of 2, so
 each step's gradients and Hessians are one calculator call over both
 branches (2 x 6N displaced structures for an SQM/SQM2 Hessian).
 
-`meta_irc` and `modekill` arrive with ROADMAP Queue 1 item 12. Coordinates
-are mass-weighted as q = sqrt(m) x (amu^1/2 Bohr).
+`meta_irc` follows the downhill path from a non-stationary point, and
+`modekill` walks a higher-order saddle down its surplus imaginary modes.
+Coordinates are mass-weighted as q = sqrt(m) x (amu^1/2 Bohr).
 """
 
 import dataclasses
@@ -18,7 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from multioptpy_tpu_torch.device import resolve_device
+from multioptpy_tpu_torch.device import calc_device, on_device
 from multioptpy_tpu_torch.geometry import (masses_from_z,
                                            project_hessian_tr_rot,
                                            tr_rot_projector)
@@ -68,6 +69,11 @@ def initial_displacements(hessian, coords, z, step_ang_amu=0.1):
     norm = torch.linalg.vector_norm(dx.reshape(dx.shape[0], -1), dim=-1)
     dx = dx / norm[:, None, None] * step_ang_amu
     return coords + dx, coords - dx
+
+
+def _mw_gradient(g, sm):
+    """Mass-weighted gradient (3N,) of one structure's g (N,3)."""
+    return g.reshape(-1) / sm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,12 +195,8 @@ def irc(calc, ts_coords, z, hessian=None, config=IRCConfig(),
     point; the returned paths include the frozen tail up to the segment
     boundary. `device` (None means the CUDA card) must be where `calc`
     lives."""
-    dev = resolve_device(device)
-    if calc.device != dev:
-        raise ValueError(f"the calculator lives on {calc.device}, but the "
-                         f"IRC was asked to run on {dev}")
-    ts = (ts_coords.detach().to(dev) if isinstance(ts_coords, torch.Tensor)
-          else torch.as_tensor(np.asarray(ts_coords), device=dev))
+    dev = calc_device(calc, device, "the IRC")
+    ts = on_device(ts_coords, dev)
     if hessian is None:
         hessian = hosteval.hessian(calc, ts[None], z, bias_engine)[0]
     hessian = torch.as_tensor(hessian, dtype=ts.dtype, device=dev)
@@ -236,3 +238,81 @@ def irc(calc, ts_coords, z, hessian=None, config=IRCConfig(),
         ts_coords=ts, ts_energy=float(e_ts[0]),
         forward_gradients=grads[0], backward_gradients=grads[1],
         ts_hessian=hessian.cpu().numpy())
+
+
+def meta_irc(calc, coords, z, config=IRCConfig(), bias_engine=None,
+             device=None):
+    """meta-IRC: a one-directional downhill path from a non-stationary
+    point (N,3): the first kick is along the mass-weighted gradient-descent
+    direction, then `config.method` follows the path to the nearest
+    minimum, in segments of 8 steps with the host's early exit at segment
+    ends. Returns an IRCResult whose forward branch is the path (the
+    backward branch holds the start)."""
+    dev = calc_device(calc, device, "the IRC")
+    coords = on_device(coords, dev)
+    e0, g0 = hosteval.energy_and_gradient(calc, coords[None], z, bias_engine)
+    sm = torch.sqrt(masses_from_z(z).to(device=dev, dtype=coords.dtype))
+    kick = (g0[0] / (torch.linalg.vector_norm(g0[0]) + 1e-30)) / sm[:, None]
+    x = (coords - config.init_displacement * kick)[None]
+    step = make_irc_step(calc, z, config, bias_engine)
+    seg = max(1, min(8, config.n_steps))
+
+    prev_e = torch.full((1,), torch.inf, dtype=coords.dtype, device=dev)
+    done = torch.zeros(1, dtype=torch.bool, device=dev)
+    rows = []
+    n_done = 0
+    while n_done < config.n_steps:
+        take = min(seg, config.n_steps - n_done)
+        for _ in range(take):
+            x_new, e, g = step(x)
+            gnorm = torch.linalg.vector_norm(g.reshape(1, -1), dim=-1)
+            bad = ~(torch.isfinite(e)
+                    & torch.isfinite(x_new).reshape(1, -1).all(-1))
+            keep = done | bad
+            done = keep | (gnorm < config.grad_threshold) | (e > prev_e)
+            x = torch.where(keep[:, None, None], x, x_new)
+            prev_e = torch.where(keep, prev_e, e)
+            rows.append((x[0], prev_e[0]))
+        n_done += take
+        if bool(done[0]):
+            break
+    return IRCResult(
+        forward_path=torch.stack([r[0] for r in rows]).cpu().numpy(),
+        backward_path=coords[None].cpu().numpy(),
+        forward_energies=torch.stack([r[1] for r in rows]).cpu().numpy(),
+        backward_energies=np.asarray([float(e0[0])]),
+        ts_coords=coords, ts_energy=float(e0[0]))
+
+
+def modekill(calc, coords, z, keep_order=0, max_rounds=30, step_size=0.1,
+             mode_thresh=-5.0, bias_engine=None, opt_config=None,
+             device=None):
+    """Remove surplus imaginary modes from a stationary structure (N,3):
+    displace along the softest surplus mode (the side of lower trial
+    energy), re-optimize, and repeat until at most `keep_order` imaginary
+    modes remain. Returns (coords, n_imaginary)."""
+    from multioptpy_tpu_torch.analysis.vibrations import (count_imaginary,
+                                                          normal_modes)
+    from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
+
+    dev = calc_device(calc, device, "ModeKill")
+    opt_config = opt_config or OptimizeConfig(
+        method="rfo_fsb", nsteps=60, saddle_order=keep_order,
+        fc_count=10 if calc.on_device else -1)
+    coords = on_device(coords, dev)
+    n_imag = -1
+    for _ in range(max_rounds):
+        h = hosteval.hessian(calc, coords[None], z, bias_engine)[0]
+        nm = normal_modes(h, coords, z)
+        n_imag = count_imaginary(nm.frequencies_cm1, mode_thresh)
+        if n_imag <= keep_order:
+            break
+        mode = nm.modes[keep_order]
+        mode = mode / torch.linalg.vector_norm(mode)
+        e_p, e_m = calc.energy(torch.stack([coords + step_size * mode,
+                                            coords - step_size * mode]),
+                               z).tolist()
+        coords = coords + (step_size if e_p < e_m else -step_size) * mode
+        coords = optimize(calc, coords, z, bias_engine=bias_engine,
+                          config=opt_config, device=dev).coords
+    return coords, n_imag

@@ -32,7 +32,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from multioptpy_tpu_torch.device import resolve_device
+from multioptpy_tpu_torch.device import (calc_device, on_device,
+                                         resolve_device)
 from multioptpy_tpu_torch.interpolation import (linear_resample,
                                                 redistribute_path)
 from multioptpy_tpu_torch.ops import hosteval
@@ -755,11 +756,6 @@ def _host_work(path, it, config, energies, grads, z):
     return path
 
 
-def _as_path(path0, dev):
-    return (path0.detach().to(dev) if isinstance(path0, torch.Tensor)
-            else torch.as_tensor(np.array(path0), device=dev))
-
-
 def neb(calc, path0, z, config=NEBConfig(), bias_engine=None, callback=None,
         device=None):
     """Run NEB on an (I,N,3) initial path. `device` (None means the CUDA
@@ -769,11 +765,8 @@ def neb(calc, path0, z, config=NEBConfig(), bias_engine=None, callback=None,
     iteration, as the reference's chunked driver does (it does that work
     only between segments, which end on every such iteration); otherwise
     after it, as its per-step loop."""
-    dev = resolve_device(device)
-    if calc.device != dev:
-        raise ValueError(f"the calculator lives on {calc.device}, but the "
-                         f"band was asked to run on {dev}")
-    path = _as_path(path0, dev)
+    dev = calc_device(calc, device, "the band")
+    path = on_device(path0, dev)
     state = band_clock_init(path, config)
     step = make_neb_step(calc, z, config, bias_engine)
     chunked = bool(config.scan_chunk and config.scan_chunk > 1
@@ -802,7 +795,7 @@ def neb_scan(calc, path0, z, config=NEBConfig(), bias_engine=None,
     """A fixed `config.n_steps` iterations with no early exit and no host
     work; `converged` reads the last step's fmax."""
     dev = resolve_device(device)
-    path = _as_path(path0, dev)
+    path = on_device(path0, dev)
     step = make_neb_step(calc, z, config, bias_engine)
     state = band_clock_init(path, config)
     e_hist = []
@@ -824,7 +817,7 @@ def adaptive_neb(calc, path0, z, config=NEBConfig(), bias_engine=None,
     image count each round, `focus` sharpens the energy weight). Returns
     the last round's NEBResult."""
     dev = resolve_device(device)
-    path = _as_path(path0, dev)
+    path = on_device(path0, dev)
     res = None
     for round_idx in range(n_rounds):
         res = neb(calc, path, z, config, bias_engine=bias_engine, device=dev)
@@ -881,7 +874,7 @@ def aneb(calc, path0, z, config=NEBConfig(), bias_engine=None,
     (`aneb_insert`) and the clock restarts; `max_images` bounds the growth.
     The climbing-image schedule stays global across growth events."""
     dev = resolve_device(device)
-    path = _as_path(path0, dev)
+    path = on_device(path0, dev)
     res = None
     steps_done = 0
     while steps_done < config.n_steps:

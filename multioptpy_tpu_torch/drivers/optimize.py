@@ -39,7 +39,8 @@ import torch
 
 from multioptpy_tpu_torch.coords.internals import (auto_internals,
                                                    detect_primitives)
-from multioptpy_tpu_torch.device import resolve_device
+from multioptpy_tpu_torch.device import (calc_device, on_device,
+                                         resolve_device)
 from multioptpy_tpu_torch.geometry import (judge_shape_condition,
                                            masses_from_z,
                                            project_gradient_tr_rot,
@@ -728,19 +729,6 @@ def dissociation_detected(coords, limit=10.0):
     return bool(np.max(np.min(d, axis=1)) > limit)
 
 
-def _as_coords(coords, device):
-    """Coordinates onto `device`; the dtype follows the input (f32 or f64)."""
-    if isinstance(coords, torch.Tensor):
-        return coords.detach().to(device)
-    return torch.as_tensor(np.asarray(coords), device=device)
-
-
-def _check_device(calc, device):
-    if calc.device != device:
-        raise ValueError(f"the calculator lives on {calc.device}, but the "
-                         f"optimization was asked to run on {device}")
-
-
 def _model_hessian_fn(coords, z, config):
     """The mfc_count rebuild: primitives detected once on the starting
     structure (N,3); the kind of `init_hessian="model:<kind>"`, else the
@@ -886,9 +874,8 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
     (`checkpoint.py`); `resume_from` restarts from one. `callback(it,
     state)` sees the batched state (batch of one). With `config.scan_chunk
     > 1` the loop runs `_optimize_chunked`."""
-    dev = resolve_device(device)
-    _check_device(calc, dev)
-    x = _as_coords(coords, dev)[None]
+    dev = calc_device(calc, device, "the optimization")
+    x = on_device(coords, dev)[None]
     constraint_targets = None
     if constraints is not None:
         if constraints.n_atoms is None:
@@ -953,10 +940,9 @@ def optimize_batch(calc, coords_batch, z, bias_engine=None,
     """Batched optimization: `n_steps` steps of the whole batch (B,N,3) in
     lockstep, converged members frozen, any method. `device` as in
     `optimize`."""
-    dev = resolve_device(device)
-    _check_device(calc, dev)
+    dev = calc_device(calc, device, "the optimization")
     n_steps = int(n_steps if n_steps is not None else config.nsteps)
-    x = _as_coords(coords_batch, dev)
+    x = on_device(coords_batch, dev)
     h0 = None if hessian0 is None else torch.as_tensor(
         hessian0, dtype=x.dtype, device=dev)
     state = init_state(x, z, calc, bias_engine, config, h0)

@@ -1,14 +1,87 @@
-"""Geometry utilities on batched coordinates: masses, TR/rot projection and
-the -sc shape conditions.
+"""Geometry utilities: distances, masses, mass weighting, TR/rot
+projection, Kabsch alignment, bond connectivity and the -sc shape
+conditions.
 
-Counterpart of `multioptpy_tpu/geometry.py`. Coordinates carry an explicit
-leading batch axis, (B, N, 3) in Bohr, in place of the reference's `vmap`.
+Counterpart of `multioptpy_tpu/geometry.py`. The TR/rot projection takes an
+explicit leading batch axis, (B, N, 3) in Bohr, in place of the reference's
+`vmap`; the distance, alignment and connectivity helpers take one
+structure (N, 3), as the reference's do, or any leading batch axes.
 """
 
 import numpy as np
 import torch
 
-from multioptpy_tpu_torch.periodic import MASS_AMU
+from multioptpy_tpu_torch.periodic import COVALENT_RADII_1, MASS_AMU
+
+_EPS = 1e-12
+
+
+def pairwise_distances(coords):
+    """(..., N, 3) -> (..., N, N) distance matrix, safe at the diagonal
+    (zero there, with a finite gradient)."""
+    n = coords.shape[-2]
+    eye = torch.eye(n, dtype=coords.dtype, device=coords.device)
+    diff = coords[..., :, None, :] - coords[..., None, :, :]
+    return torch.sqrt((diff * diff).sum(-1) + eye * _EPS) * (1.0 - eye)
+
+
+def safe_norm(x, axis=-1, eps=_EPS):
+    """Differentiable-at-zero vector norm."""
+    return torch.sqrt((x * x).sum(axis) + eps)
+
+
+def mass_weight_coords(coords, masses):
+    """COM-shifted mass-weighted coordinates (..., N, 3)."""
+    m = masses.to(coords.dtype)
+    com = (coords * m[:, None]).sum(-2, keepdim=True) / m.sum()
+    return (coords - com) * torch.sqrt(m)[:, None]
+
+
+def _weighted_mean(p, weights):
+    return (p * weights[:, None]).sum(-2, keepdim=True) / weights.sum()
+
+
+def kabsch_rotation(p, q, weights=None):
+    """Optimal rotation (..., 3, 3) aligning p onto q ((..., N, 3) each,
+    centered here): R with det +1, so that (p - <p>) @ R fits q - <q>; a
+    reflection in the SVD is undone by flipping the sign of the last
+    singular direction."""
+    if weights is None:
+        weights = torch.ones(p.shape[-2], dtype=p.dtype, device=p.device)
+    weights = weights.to(p.dtype)
+    pc = p - _weighted_mean(p, weights)
+    qc = q - _weighted_mean(q, weights)
+    h = (pc * weights[:, None]).mT @ qc
+    u, _, vt = torch.linalg.svd(h)
+    d = torch.sign(torch.linalg.det(u @ vt))
+    flip = torch.ones(d.shape + (3,), dtype=p.dtype, device=p.device)
+    flip = torch.cat([flip[..., :2], d[..., None]], dim=-1)
+    return (u * flip[..., None, :]) @ vt
+
+
+def align_to(p, q, weights=None):
+    """Rigid-align p onto q (translation + rotation); returns aligned p."""
+    if weights is None:
+        weights = torch.ones(p.shape[-2], dtype=p.dtype, device=p.device)
+    weights = weights.to(p.dtype)
+    r = kabsch_rotation(p, q, weights)
+    return (p - _weighted_mean(p, weights)) @ r + _weighted_mean(q, weights)
+
+
+def rmsd(p, q, weights=None, align=True):
+    """Root-mean-square deviation after optional Kabsch alignment."""
+    if align:
+        p = align_to(p, q, weights)
+    return torch.sqrt(((p - q) ** 2).sum(-1).mean(-1))
+
+
+def bond_connectivity(coords, z, scale=1.2):
+    """Boolean (..., N, N) adjacency: r_ij < scale (R_i + R_j) with the
+    single-bond covalent radii."""
+    radii = torch.as_tensor(np.asarray(COVALENT_RADII_1)[np.asarray(z)],
+                            dtype=coords.dtype, device=coords.device)
+    d = pairwise_distances(coords)
+    return (d < scale * (radii[:, None] + radii[None, :])) & (d > _EPS)
 
 
 def masses_from_z(z):

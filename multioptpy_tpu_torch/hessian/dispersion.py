@@ -1,7 +1,7 @@
 """Dispersion pieces on batched coordinates: D3 coordination numbers and
 the charge-scaled D4 two-body energy (the SQM calculators), and the D2,
 D3(BJ) (static, or with coordination-number-scaled C6) and D4 energies
-with their exact autodiff Hessians, the D4 charge estimate and the D4 pair
+with their autodiff gradients and exact autodiff Hessians, the D4 charge estimate and the D4 pair
 force constant (the dispersion-corrected model Hessians,
 `hessian/model.py`).
 
@@ -247,12 +247,22 @@ def d2_hessian(coords, z, s6=1.2):
     return _hessian_of(d2_energy, coords, z, s6=s6)
 
 
-def d3_gradient(coords, z, **kw):
-    """(B, N, 3) gradient of `d3_energy`."""
+def _gradient_of(energy_fn, coords, z, **kw):
+    """(B, N, 3) autodiff gradients of energy_fn(coords (B,N,3), z)."""
     with torch.enable_grad():
         x = coords.detach().requires_grad_(True)
-        (g,) = torch.autograd.grad(d3_energy(x, z, **kw).sum(), x)
+        (g,) = torch.autograd.grad(energy_fn(x, z, **kw).sum(), x)
     return g
+
+
+def d2_gradient(coords, z, s6=1.2):
+    """(B, N, 3) gradient of `d2_energy`."""
+    return _gradient_of(d2_energy, coords, z, s6=s6)
+
+
+def d3_gradient(coords, z, **kw):
+    """(B, N, 3) gradient of `d3_energy`."""
+    return _gradient_of(d3_energy, coords, z, **kw)
 
 
 def d3_hessian(coords, z, **kw):
@@ -283,6 +293,12 @@ def d4_pair_force_const(r, c6, c8, r0, q_scaling=1.0, **kw):
     """-(e6 + e8): the pairwise force-constant term the D4-flavoured model
     Hessians add to long pairs."""
     return -d4_pair_energy(r, c6, c8, r0, q_scaling, **kw)
+
+
+def d4_gradient(coords, z, **kw):
+    """(B, N, 3) gradient of `d4_energy` (charges from `d4_charges`,
+    differentiated through)."""
+    return _gradient_of(d4_energy, coords, z, **kw)
 
 
 def d4_hessian(coords, z, **kw):

@@ -31,7 +31,8 @@ import torch
 
 from multioptpy_tpu_torch.coords.internals import (InternalCoordinates,
                                                    detect_primitives)
-from multioptpy_tpu_torch.geometry import (project_hessian_tr_rot,
+from multioptpy_tpu_torch.geometry import (bond_connectivity,
+                                           project_hessian_tr_rot,
                                            tr_rot_projector)
 from multioptpy_tpu_torch.hessian import dispersion
 from multioptpy_tpu_torch.ops.eigh64 import eigh_deflated
@@ -447,13 +448,6 @@ def ts_model_hessian(h, thresh=1e-8, projector=None):
     return torch.where(has_neg[:, None, None], h, h_ts)
 
 
-def _bond_connectivity(coords_np, z, scale=1.2):
-    radii = np.asarray(COVALENT_RADII_1)[np.asarray(z)]
-    rsum = radii[:, None] + radii[None, :]
-    d = np.linalg.norm(coords_np[:, None] - coords_np[None, :], axis=-1)
-    return (d < scale * rsum) & (d > 1e-12)
-
-
 def short_range_hessian(coords, z, bonds=None, omega=0.2, cx_sr=0.78,
                         scale=0.5, cutoff=15.0):
     """Short-range erf-screened Coulomb correction for non-bonded pairs:
@@ -468,7 +462,7 @@ def short_range_hessian(coords, z, bonds=None, omega=0.2, cx_sr=0.78,
     q = 0.2 * (en.mean() - en)
     qq = torch.as_tensor(np.outer(q, q), **kind)
     if bonds is None:
-        conn = _bond_connectivity(coords[0].detach().cpu().numpy(), z)
+        conn = bond_connectivity(coords[0].detach(), z).cpu().numpy()
     else:
         conn = np.zeros((n, n), dtype=bool)
         for i, j in np.asarray(bonds).reshape(-1, 2):

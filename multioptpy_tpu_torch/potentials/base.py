@@ -5,7 +5,9 @@ function `energy(coords (B, N, 3), params) -> (B,)`; the engine sums them
 and differentiates the sum: the gradient by autograd (members are
 independent), the Hessian by `torch.func` forward-over-reverse per member,
 the counterpart of `jax.hessian`. NEB images and IRC branches call it as a
-batch.
+batch. AFIR is written on the batch; the other potentials write the
+reference's one-structure energy `energy_one(coords (N, 3), params)`,
+which the base class maps over the batch with `torch.func.vmap`.
 
 Atom indices in configs are 1-based (reference CLI convention) and
 converted to 0-based arrays here.
@@ -14,10 +16,37 @@ converted to 0-based arrays here.
 import numpy as np
 import torch
 
+_CONSTANTS = {}
+
 
 def idx0(atoms):
     """1-based index list -> 0-based int32 numpy array."""
     return np.asarray(atoms, dtype=np.int32) - 1
+
+
+def const(array, like, dtype=None):
+    """`array` (numpy) as a tensor on `like`'s device (in `like`'s dtype, or
+    `dtype`), kept per device so that an energy call copies no table to the
+    card; integer arrays become int64 index tensors."""
+    a = np.asarray(array)
+    if dtype is None:
+        if a.dtype == bool:
+            dtype = torch.bool
+        elif a.dtype.kind in "iu":
+            dtype = torch.long
+        else:
+            dtype = like.dtype
+    key = (a.tobytes(), a.shape, a.dtype.str, dtype, str(like.device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(a, dtype=dtype,
+                                              device=like.device)
+    return t
+
+
+def _dist(a, b, eps=1e-12):
+    d = a - b
+    return torch.sqrt((d * d).sum(-1) + eps)
 
 
 def _angle(p1, p2, p3, eps=1e-12):
@@ -27,6 +56,11 @@ def _angle(p1, p2, p3, eps=1e-12):
     cross = torch.linalg.cross(v1, v2, dim=-1)
     return torch.atan2(torch.sqrt((cross * cross).sum(-1) + eps),
                        (v1 * v2).sum(-1))
+
+
+def _fragment_center(coords, indices):
+    """Mean of the (N, 3) rows `indices`."""
+    return coords[const(indices, coords)].mean(0)
 
 
 def _dihedral(p1, p2, p3, p4, eps=1e-12):
@@ -44,8 +78,9 @@ def _dihedral(p1, p2, p3, p4, eps=1e-12):
 
 
 class BiasPotential:
-    """Base class. Subclasses define `name`, `init_params()` and
-    `energy(coords (B, N, 3), params) -> (B,)`."""
+    """Base class. Subclasses define `name`, `init_params()` and either
+    `energy(coords (B, N, 3), params) -> (B,)` or the one-structure
+    `energy_one(coords (N, 3), params) -> ()`."""
 
     name = "base"
 
@@ -57,6 +92,10 @@ class BiasPotential:
         return np.zeros((0,), dtype=np.float64)
 
     def energy(self, coords, params):
+        return torch.func.vmap(self.energy_one, in_dims=(0, None))(coords,
+                                                                   params)
+
+    def energy_one(self, coords, params):
         raise NotImplementedError
 
 
@@ -121,13 +160,11 @@ def register_potential(cls):
 
 
 def get_potential(name, **config):
-    """Instantiate a potential by name; this port registers "afir" only
-    (the rest are ROADMAP Queue 1 item 13)."""
+    """Instantiate a potential by name."""
     import multioptpy_tpu_torch.potentials  # noqa: F401  (registration)
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"bias potential '{name}': this port has {sorted(_REGISTRY)}; "
-            "the other potentials arrive with ROADMAP Queue 1 item 13")
+        raise KeyError(f"unknown bias potential '{name}'; "
+                       f"available: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**config)
 
 

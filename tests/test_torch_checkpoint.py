@@ -59,7 +59,7 @@ def test_resumed_run_takes_the_same_trajectory(method, extra, tmp_path):
                                   whole.energy_history[2:])
     np.testing.assert_array_equal(resumed.coords_history,
                                   whole.coords_history[2:])
-    _, meta = load_checkpoint(path)
+    _, meta = load_checkpoint(path, device="cpu")
     assert meta == {"iteration": 2, "method": method}
     with np.load(path, allow_pickle=False) as data:
         assert "__manifest__" in data.files
@@ -87,7 +87,7 @@ def test_batched_state_round_trips(method, extra, tmp_path):
         state = step(state)
     path = str(tmp_path / "batch.npz")
     save_checkpoint(path, state, meta={"note": "batched"})
-    back, meta = load_checkpoint(path)
+    back, meta = load_checkpoint(path, device="cpu")
     assert meta == {"note": "batched"}
     assert type(back) is opt.OptState
     assert [type(x) for x in back.fo_state] == [type(x)
@@ -96,3 +96,16 @@ def test_batched_state_round_trips(method, extra, tmp_path):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_load_checkpoint_defaults_to_the_card(tmp_path):
+    """Like every public entry point of the port, loading puts the state on
+    the card unless the caller asks for the CPU."""
+    path = str(tmp_path / "state.npz")
+    save_checkpoint(path, {"x": torch.zeros(2)}, meta={})
+    if torch.cuda.is_available():
+        assert load_checkpoint(path)[0]["x"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            load_checkpoint(path)
+    assert load_checkpoint(path, device="cpu")[0]["x"].device.type == "cpu"

@@ -78,9 +78,12 @@ def test_batched_bias_equals_single_members():
 
 
 def test_unported_potentials_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        get_potential("keep", spring_const=1.0, distance=1.0,
-                      atom_pair=[1, 2])
+    """Every potential of the reference is ported now: only a name that
+    neither package registers raises, as the reference's KeyError does."""
+    with pytest.raises(KeyError, match="unknown bias potential"):
+        get_potential("keep_fourier", spring_const=1.0)
+    assert get_potential("keep", spring_const=1.0, distance=1.0,
+                         atom_pair=[1, 2]).name == "keep"
 
 
 def test_muller_brown_energy_and_autodiff_hessian_match_reference():
