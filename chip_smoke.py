@@ -15,8 +15,9 @@ Phases, each printing one JSON line:
      shapes; then seeded_eigh, whose f32 seed is the kernel, against
      torch.linalg.eigvalsh.
   2. slice_a: 256 perturbed S8 rings relaxed together on SQM in f32 with
-     rfo_fsb, an exact initial Hessian and eigh_impl="pallas", 150 steps
-     (the throughput configuration of examples/04_scale_demo.py).
+     rfo_fsb, an exact initial Hessian and eigh_impl="pallas", 100 steps
+     (the throughput configuration of examples/04_scale_demo.py, cut from
+     150: SLICE_A_STEPS).
   3. slice_b: the 18-atom Diels-Alder reactant on SQM2 in f64 with rfo_fsb,
      an exact initial Hessian and eigh_impl="pallas" on the stepper and the
      calculator, up to 60 steps; its first 3 steps also run on the CPU and
@@ -47,7 +48,8 @@ Phases, each printing one JSON line:
      TRIM, mass weighting, DIC, crsirfo with a C2-C3 bond constraint,
      GEDIIS, KDIIS, `-opt fire rfo_fsb`, FIRE, L-BFGS, CG and GPmin from
      the reactant. Each must give finite energies whose first 3 agree with
-     the same run on the CPU (the kernel's algorithm) to 1e-8 Ha; each
+     the same run on the CPU (the kernel's algorithm for the step, LAPACK
+     for the band: reaction_paths.CPU_RERUN_BAND) to 1e-8 Ha; each
      RS-P-RFO run must launch the block variant. Then the RS-P-RFO
      Hessians of those runs, kept by a second pass, must be converged by
      the step's 14 f64 sweeps (largest off-diagonal <= 1e-12 of max|a|).
@@ -64,15 +66,16 @@ Phases, each printing one JSON line:
      interior maximum, block launches at 16x72x72, and its first 2
      iterations' band energies within 1e-8 Ha of the same NEBConfig run
      through `neb` on the CPU. (b) On the aldol pair, relaxed on the card,
-     12 images and 20 iterations each: the 15 force laws with FIRE, the 10
+     12 images and 10 iterations each: the 15 force laws with FIRE, the 10
      other band clocks with CI-NEB, -idpp, -ci 5 5, -aneb 1 5, -pitr and
      the 11 redistribution schemes every 5 iterations, each finite and
      within 1e-8 Ha of its CPU rerun over the first 2 iterations (-aneb:
      its band after 7, past the first growth to 14 images); then `gpneb` with 2 outer rounds, within the
      bound its docstring states (1e-10 Ha, 1e-9 Bohr). (c) ircmain from
-     the full flagship's TS with lqa, euler, rk4, dvv and hpc, 15 steps
+     the full flagship's TS with lqa, euler, rk4, dvv and hpc, 10 steps
      each: both branches below the TS energy and descending, the first 3
-     energies within 1e-8 Ha of a CPU rerun, and the TS Hessian's launch
+     energies within 1e-8 Ha of a CPU rerun (its band through LAPACK,
+     reaction_paths.CPU_RERUN_BAND), and the TS Hessian's launch
      at 108x72x72. (d) On the Diels-Alder reactant: every model-Hessian
      kind and suffix against the CPU to 1e-10 relative, o1numhess and
      o1numhess_full to 1e-8, and one optmain -sqm2 -modelhess run of 5
@@ -82,8 +85,9 @@ Phases, each printing one JSON line:
   8. dynamics: mdmain and ieipmain through cli.main on the Diels-Alder
      system, SQM2 f64, the band eigh through the kernel
      (multioptpy_tpu_torch/dynamics_paths.py). (a) mdmain from the full
-     flagship's reactant: nosehoover for 200 steps; none, nosehooverchain,
-     berendsen and langevin for 50; a -cc SHAKE bond, a -ct schedule,
+     flagship's reactant: nosehoover for 100 steps; none for 50;
+     nosehooverchain, berendsen and langevin for 30 (cut from 200 and 50:
+     dynamics_paths.MD_STEPS); a -cc SHAKE bond, a -ct schedule,
      -ntraj 2 and a run under six kinds of bias flags. Each prints ms per
      step, K1 launches per step (at least one 1x72x72 a step) and a
      profiled step's idle share; the SHAKE bond must hold to 1e-6
@@ -94,10 +98,11 @@ Phases, each printing one JSON line:
      the same 25 fs (velocity Verlet is second order), and central
      differences of the energy must match its gradient to 1e-8 Ha/Bohr.
      (b) The 36 bias potentials one by one: energy, gradient and Hessian
-     on the card against the CPU to 1e-12 relative; then 20 steps of
+     on the card against the CPU to 1e-12 relative; then 8 steps of
      optimize under all 36 at once, the first 3 energies within 1e-8 Ha
-     of the CPU's. (c) ieipmain with eip, spring_pair, dimer and gnt
-     between the full flagship's IRC endpoints; 2pshs (5 spheres) from the
+     of the CPU's. (c) ieipmain with eip, spring_pair (-ns 30), dimer
+     (-dimer_maxiter 15) and gnt (-gnt_mi 4) between the full flagship's
+     IRC endpoints; 2pshs (3 spheres) from the
      product's relaxed minimum toward the reactant's; -addf -addf_nadd 2
      -addf_num 10 from the reactant's relaxed minimum and from the
      product's, where a channel turns over and addf_explore refines the
@@ -112,16 +117,54 @@ Phases, each printing one JSON line:
      whose softest curvatures are below 1e-5 Ha/Bohr^2, those two differ
      by an O(1) Ha, so that run is held instead at its refined point: its
      energy against the CPU's there to 1e-8 Ha, its imaginary modes
-     printed. (d) meta_irc (LQA) from a displaced minimum, 15 steps, the
+     printed. (d) meta_irc (LQA) from a displaced minimum, 8 steps, the
      first 2 within 1e-8 Ha of the CPU's; modekill (keep_order 1) on the
      flagship's TS made a second-order saddle by a keep restraint of
      negative spring constant on C2-C3 at its length: two imaginary modes
      before, at most one after, its first round within 1e-8 Ha and 1e-7
      Bohr of the CPU's.
+  9. workflows: confsearch, relaxedscan, orientsearch and run_mapper, the
+     v2 workflow engine and metadynamics on SQM2 f64, the band eigh
+     through the kernel (multioptpy_tpu_torch/workflow_paths.py). (a)
+     confsearch -sqm2 -bsize 16 -ms 2 -pbc --eigh_impl pallas on n-octane
+     (alkane_chain(8), 26 atoms) through the command's function: 0
+     non-finite candidates, K1 launches at 16x104x104 (the band) and
+     16x78x78 (the RS-RFO step, 15 sweeps), a traced relax step; the band
+     through K1 within 1e-10 Ha of torch.linalg.eigh on the 16 kicked
+     conformers, their RS-RFO Hessians converged to 1e-12 of max|a| by the
+     step's sweeps, and the first round's first 5 kick steps and first 3
+     relaxation energies of 2 members within 1e-8 Ha of the CPU from the
+     card's seeds, pairs and signs. (b) relaxedscan -scan bond 1,11
+     3.2,1.6 -nsample 6 -ns 10 on the Diels-Alder reactant: every point
+     finite, the bond held to 1e-4 Angstrom, the first point's first 3
+     energies within 1e-8 Ha of the CPU. (c) orientsearch -part 11-18
+     -nsample 16 -dist 3.5: 16 finite sorted energies, launches at 16x72
+     and 16x54, 2 placements' first 3 energies within 1e-8 Ha of the CPU.
+     (d) run_metadynamics on the C1-C1' distance (Langevin, 4 hills every
+     10 steps): finite CV history and free energy, the first 5 steps
+     within 1e-10 Ha and 1e-9 Bohr of the CPU from the card's velocities
+     and draws. (e) run_autots -cfg v2.json (neb, saddle, freq, irc) between
+     the full flagship's IRC endpoints through the command's function: a
+     report for every step, ts.xyz, the saddle step converged on the
+     flagship's TS (one imaginary mode, its energy within 1e-6 Ha), the
+     run's own first 2 NEB iterations within 1e-8 Ha of the same command
+     on the CPU. (f) run_mapper -sqm2 -cfg mapper.json ({"mapper": ...}:
+     the batched AFIR executor at batch_size 2, 2 explorations, each
+     task's AutoTS at the mapper's defaults) from the Diels-Alder
+     reactant through the command's function, then run_mapper --resume
+     reading network.json back: no task skipped for an error, each task's
+     TS count reported (a count other than one adds no edge), the
+     executor's first 3 steps within 1e-8 Ha of the CPU, finite kinetic
+     priorities. The CPU reruns of (a)-(c), which start from exact
+     Hessians, take the band through LAPACK. kernel_check rows follow at
+     1x104, 16x104 (9 sweeps), 1x78, 16x78 (15) and 16x54 (14), timed, and
+     at every other f64 batch the phase's main runs launched. In this
+     phase and the dynamics phase, the launches of a check or rerun on
+     the card are discarded: the kernels line counts the main runs'.
 Slice A must launch the warp variant and slice B the block variant. The
 kernel_check rows time the wrapper and the kernel launch alone (padded
 input, no sort or gather) as the median of 3 groups of CUDA-event timings
-each. Then
+each, the plain version as one call after a warm one. Then
 the kernels line (one entry per variant), the card's name and power
 limit, and last the fixed
 {"ok": true, "device": ...} line. Any failed check raises: exit code != 0.
@@ -149,6 +192,18 @@ PEAK_OPS = {torch.float32: 67e12, torch.float64: 67e12}
 # 1003 s on a 69 s host
 METHOD_STEPS = 10
 ENSEMBLE_STEPS = 50
+# cut for the same reason when the workflows phase came (its ~170 s on a
+# 52 s flagship host): slice A's steps (from 150), the aldol bands'
+# iterations (reaction_paths.ALDOL_STEPS, from 20; each band still
+# redistributes twice and -aneb grows past its compared prefix), the IRC
+# steps of each integrator (from 15) and the optimization under all 36
+# potentials (from 20); every gate is unchanged
+SLICE_A_STEPS = 100
+IRC_STEPS = 10
+BIAS_OPT_STEPS = 8
+META_IRC_STEPS = 8      # from 15
+# (the dynamics phase's MD and ieipmain depths: dynamics_paths.MD_STEPS
+# and the constants beside it)
 SQM_LOOSE = dict(max_force=3e-3, rms_force=2e-3, max_displacement=1e-2,
                  rms_displacement=7e-3)
 
@@ -196,12 +251,12 @@ def median_ms(fn, groups=3):
     return float(np.median([cuda_ms(fn) for _ in range(groups)]))
 
 
-def check_row(jc, gen, b, d, dtype, where, card, timed=True):
+def check_row(jc, gen, b, d, dtype, where, card, timed=True, sweeps=None):
     """One kernel_check row: the kernel against its plain version on a
-    random (b, d, d) batch at the sweeps of `where` (a main-path shape: its
-    `_eigh` count; the near-degenerate and boundary rows 12), timed with the
-    plain version, torch.linalg.eigh and the bound when `timed`. Emits the
-    row and raises when the kernel disagrees."""
+    random (b, d, d) batch at `sweeps`, else at the sweeps of `where` (a
+    main-path shape: its `_eigh` count; the near-degenerate and boundary
+    rows 12), timed with the plain version, torch.linalg.eigh and the bound
+    when `timed`. Emits the row and raises when the kernel disagrees."""
     from multioptpy_tpu_torch.device import cuda_ms
     from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
                                                    rfo_extra_sweeps)
@@ -210,9 +265,9 @@ def check_row(jc, gen, b, d, dtype, where, card, timed=True):
     # the boundary rows (B = 12289 random matrices hold close pairs)
     # get 12 sweeps; every main-path shape the main path's (`_eigh`:
     # one more than its CPU count, an RS-RFO step more in f64)
-    sw = (12 if where in ("near-degenerate", "variant boundary")
-          else jacobi_sweeps_for(d) + (rfo_extra_sweeps(dtype)
-                                       if "RFO" in where else 1))
+    sw = sweeps or (12 if where in ("near-degenerate", "variant boundary")
+                    else jacobi_sweeps_for(d) + (rfo_extra_sweeps(dtype)
+                                                 if "RFO" in where else 1))
     a = random_sym(gen, b, d, dtype, degenerate=(where == "near-degenerate"))
     w, v = jc.jacobi_eigh_cuda(a, sw)
     w_p, v_p = jc.jacobi_eigh_plain(a, sw)
@@ -246,16 +301,30 @@ def check_row(jc, gen, b, d, dtype, where, card, timed=True):
               and err_r <= 2 * row["plain_reconstruction_err"]
               and err_o <= tol_r * d)
     else:
-        ok = (err_w <= tol_w * scale and err_r <= tol_r * scale
-              and err_o <= tol_r * d)
+        ok_r = err_r <= tol_r * scale
+        if not ok_r:
+            # a random batch of thousands holds matrices that the main
+            # path's sweeps leave short of convergence (at 2496x104 and 9
+            # sweeps, one whose smallest gap is 0.5 % of max|a| keeps
+            # 3.8e-11 of max|a| in the plain version as in the kernel;
+            # 200 random 104s converge to 6.3e-14 and the n-octane bands
+            # to 1.6e-15 of max|a|): the kernel must then give the plain
+            # version's own decomposition
+            rec_p = torch.einsum("bij,bj,bkj->bik", v_p, w_p, v_p)
+            row["plain_reconstruction_err"] = (rec_p - a).abs().max().item()
+            row["reconstruction_err_vs_plain"] = (rec
+                                                  - rec_p).abs().max().item()
+            ok_r = row["reconstruction_err_vs_plain"] <= tol_r * scale
+        ok = err_w <= tol_w * scale and ok_r and err_o <= tol_r * d
     row["ok"] = ok
     if timed:
         row["ms"] = median_ms(lambda: jc.jacobi_eigh_cuda(a, sw))
         a3 = jc.pad_to_even(a)[0].contiguous()
         plan = jc.launch_plan(b, a3.shape[-1], dtype, jc._prepare(0, dtype))
         row["kernel_only_ms"] = median_ms(lambda: jc.launch(a3, sw, plan))
+        # one timed call after a warm one: the plain version takes 0.3-1.3 s
         row["plain_ms"] = cuda_ms(lambda: jc.jacobi_eigh_plain(a, sw),
-                                  reps=3)
+                                  reps=1)
         row["library_ms"] = median_ms(lambda: torch.linalg.eigh(a))
         row["bound_ms"], row["bound_by"] = bound_ms(b, d, sw, dtype)
     emit({"phase": "kernel_check", **row, "card": card})
@@ -340,7 +409,7 @@ def phase_slice_a(jc, card):
     from multioptpy_tpu_torch.drivers.optimize import (OptimizeConfig,
                                                        optimize_batch)
 
-    batch_n, n_steps = 256, 150
+    batch_n, n_steps = 256, SLICE_A_STEPS
     rng = np.random.default_rng(11)
     batch = torch.as_tensor(s8_ring()[None] + 0.12 * rng.standard_normal(
         (batch_n, 8, 3)), dtype=torch.float32, device="cuda")
@@ -616,6 +685,7 @@ def phase_methods(jc, card, saddle_start, n_steps=METHOD_STEPS):
     from multioptpy_tpu_torch.flagship import (method_runs, run_method,
                                                saddle_sweep_residuals)
     from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu_torch.reaction_paths import CPU_RERUN_BAND
     from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
                                                    rfo_extra_sweeps)
 
@@ -623,7 +693,7 @@ def phase_methods(jc, card, saddle_start, n_steps=METHOD_STEPS):
     reactant, z = diels_alder_reactant()
     starts = {"reactant": reactant, "saddle": saddle_start.cpu().numpy()}
     gpu_calc = SQM2(eigh_impl="pallas", device="cuda")
-    cpu_calc = SQM2(eigh_impl="kernel", device="cpu")
+    cpu_calc = SQM2(eigh_impl=CPU_RERUN_BAND, device="cpu")
     totals = dict.fromkeys(jc.VARIANTS, 0)
     for label, kw, start in method_runs():
         jc.reset_launches()
@@ -769,7 +839,7 @@ def phase_reaction_paths(jc, card, full_res, rows):
     gate(by_shape.get("16x72x72 f64 sweeps=9", 0) > 0 and v["block"] > 0,
          "(a) no block launch at 16x72x72", out)
 
-    # (b) breadth on the relaxed aldol pair, 12 images, 20 iterations
+    # (b) breadth on the relaxed aldol pair, 12 images, ALDOL_STEPS each
     t0 = time.perf_counter()
     pair = rp.relaxed_aldol_pair("cuda")
     v, by_shape = take()
@@ -796,12 +866,13 @@ def phase_reaction_paths(jc, card, full_res, rows):
     gate(g["finite"] and g["max_abs_e_diff_cpu_vs_card"] <= 1e-10
          and g["max_abs_path_diff_cpu_vs_card"] <= 1e-9, "(b) gpneb", out)
 
-    # (c) ircmain from the flagship's TS, 15 steps of each integrator
+    # (c) ircmain from the flagship's TS, IRC_STEPS of each integrator
     for row in rp.irc_runs(full_res.ts_coords, z_da, "cuda",
-                           launch_counter=take):
+                           n_steps=IRC_STEPS, launch_counter=take):
         v, by_shape = row.pop("k1_launches_by_shape")
         out = {"phase": "reaction_paths", "part": "c_irc",
-               "run": f"ircmain -sqm2 -im {row['method']} -ns 15", **row,
+               "run": f"ircmain -sqm2 -im {row['method']} -ns {IRC_STEPS}",
+               **row,
                "kernel_launches": v, "k1_launches_by_shape": by_shape,
                "card": card}
         emit(out)
@@ -858,7 +929,9 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
     totals = dict.fromkeys(jc.VARIANTS, 0)
 
     def take():
-        """Launches since the last reset (by variant, by shape); resets."""
+        """A main-path run's launches since the last reset (by variant, by
+        shape), added to the phase's totals; resets. A check or rerun on
+        the card discards its own with jc.reset_launches()."""
         v = dict(jc.jacobi_eigh_cuda.variant_launches)
         for k in totals:
             totals[k] += v[k]
@@ -911,13 +984,13 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
         if (thermostat, bias, cc) not in profiles:
             profiles[(thermostat, bias, cc)] = dp.md_step_profile(
                 reactant, z, thermostat, "cuda", bias, cc)
-            take()
+            jc.reset_launches()
         out["step_profile"] = profiles[(thermostat, bias, cc)]
         if thermostat == "none":
             v0, _ = dp.draws_of_seed(z, n_atoms, 0, "cuda")
             out["nve"] = dp.nve_check(reactant, z, v0, e, "cuda")
             out["total_energy_drift_Ha"] = out["nve"]["drift_Ha"]
-            take()
+            jc.reset_launches()
         if "-cc" in flags:
             d = np.linalg.norm(run["frames"][:, 1] - run["frames"][:, 2],
                                axis=1) * 0.52917721067
@@ -969,11 +1042,12 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
                                for p in pc.values()), "(b) potentials", out)
     gate(max(worst.values()) <= 1e-12, "(b) card vs CPU", out)
     jc.reset_launches()
-    card_opt = dp.biased_optimization(reactant, z, "cuda")
+    card_opt = dp.biased_optimization(reactant, z, "cuda",
+                                      n_steps=BIAS_OPT_STEPS)
     v, by_shape = take()
     _, bias_prof = dp.timed_and_profiled(
         lambda: dp.all_potentials_gradient(reactant, z, "cuda"))
-    take()
+    jc.reset_launches()
     t0 = time.perf_counter()
     cpu_opt = dp.biased_optimization(reactant, z, "cpu", n_steps=2)
     n = min(len(card_opt["energies"]), len(cpu_opt["energies"]))
@@ -996,7 +1070,7 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
     # relaxed minima
     t0 = time.perf_counter()
     mins = dp.relaxed_minima(reactant, product, z, "cuda")
-    take()
+    take()  # the ieipmain runs' starts
     put({"phase": "dynamics", "part": "c_relaxed_minima",
          "seconds": time.perf_counter() - t0, "energies": mins["energies"],
          "steps": mins["steps"], "card": card})
@@ -1029,7 +1103,7 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
             # the refined point's imaginary modes are reported
             sc = dp.saddle_check(run["ts_guess"], run["ts_energy"], z,
                                  "cuda")
-            take()
+            jc.reset_launches()
             out.update({"ts_guess_imaginary_modes": sc["n_imaginary"],
                         "abs_e_diff_cpu_vs_card":
                         sc["abs_e_diff_cpu_vs_card"]})
@@ -1039,7 +1113,7 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
                     None if end is None else geoms[end], z)
             e_card, prof = dp.timed_and_profiled(
                 lambda: dp.ieip_first_iterations(*args, "cuda"))
-            take()
+            jc.reset_launches()
             t0 = time.perf_counter()
             e_cpu = dp.ieip_first_iterations(*args, "cpu")
             out.update({"first_iterations_energies": e_card.tolist(),
@@ -1079,11 +1153,11 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
     rng = np.random.default_rng(5)
     start = reactant + 0.05 * rng.standard_normal(reactant.shape)
     jc.reset_launches()
-    run = dp.meta_irc_run(start, z, "cuda", 15)
+    run = dp.meta_irc_run(start, z, "cuda", META_IRC_STEPS)
     v, by_shape = take()
     _, irc_prof = dp.timed_and_profiled(
         lambda: dp.meta_irc_run(start, z, "cuda", 1))
-    take()
+    jc.reset_launches()
     cpu = dp.meta_irc_run(start, z, "cpu", 2)
     diff = float(np.abs(run["energies"][:2] - cpu["energies"]).max())
     out = {"phase": "dynamics", "part": "d_meta_irc", "steps":
@@ -1105,7 +1179,7 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
     v, by_shape = take()
     short = dp.modekill_run(ts, z, "cuda", keep_order=1, max_rounds=1,
                             opt_steps=2, bias_engine=bias)
-    take()
+    jc.reset_launches()
     cpu = dp.modekill_run(ts, z, "cpu", keep_order=1, max_rounds=1,
                           opt_steps=2, bias_engine=bias)
     out = {"phase": "dynamics", "part": "d_modekill",
@@ -1133,6 +1207,252 @@ def phase_dynamics_and_double_ended(jc, card, full_res):
     return totals
 
 
+def phase_workflows(jc, card, full_res, rows):
+    """confsearch, relaxedscan, orientsearch and run_mapper, the v2
+    workflow engine and metadynamics on the card (SQM2 f64, the band eigh
+    through K1; multioptpy_tpu_torch/workflow_paths.py), each against a
+    CPU rerun through the kernel's algorithm. Appends kernel_check rows
+    for the new shapes: n-octane's band (104) and RS-RFO Hessian (78) at
+    batches of 1 and 16, and orientsearch's 16x54 RS-RFO Hessian, timed;
+    every other f64 batch the phase launched, held to the plain version."""
+    import tempfile
+
+    from multioptpy_tpu_torch import workflow_paths as wp
+    from multioptpy_tpu_torch.dynamics_paths import write_structure
+    from multioptpy_tpu_torch.io.fixtures import (alkane_chain,
+                                                  diels_alder_reactant)
+
+    torch.set_num_threads(8)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(jc.VARIANTS, 0)
+    seen_shapes = set()
+
+    def take():
+        """A main-path run's launches since the last reset (by variant, by
+        shape), added to the phase's totals; resets. A check or rerun on
+        the card discards its own with jc.reset_launches()."""
+        v = dict(jc.jacobi_eigh_cuda.variant_launches)
+        for k in totals:
+            totals[k] += v[k]
+        seen_shapes.update(jc.jacobi_eigh_cuda.shape_launches)
+        by_shape = shape_counts(jc)
+        jc.reset_launches()
+        return v, by_shape
+
+    def gate(ok, what, out):
+        if not ok:
+            raise AssertionError(f"workflows {what}: {out}")
+
+    def put(out):
+        out["phase_elapsed_s"] = time.perf_counter() - t_phase
+        emit(out)
+
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    da, z_da = diels_alder_reactant()
+    oc, z_oc = alkane_chain(wp.OCTANE_CARBONS)
+    da_xyz = write_structure(f"{work}/diels_alder.xyz", da, z_da)
+    oc_xyz = write_structure(f"{work}/n_octane.xyz", oc, z_oc)
+
+    # (a) confsearch on n-octane, 16 candidates a round, 2 rounds
+    jc.reset_launches()
+    run = wp.confsearch_run(oc_xyz, "cuda", f"{work}/conf")
+    v, by_shape = take()
+    first = run.pop("first_round")
+    kicked = first["kick"]["kicked"]
+    calc = wp.SQM2(eigh_impl="pallas", device="cuda")
+    prof = wp.relax_step_profile(calc, kicked, z_oc)
+    band = wp.band_check(kicked, z_oc, "cuda")
+    sweep = wp.rfo_sweep_check(kicked, z_oc, "cuda")
+    jc.reset_launches()
+    t0 = time.perf_counter()
+    card_kr = wp.kick_and_relax(first, z_oc, "cuda")
+    jc.reset_launches()
+    cpu_kr = wp.kick_and_relax(first, z_oc, "cpu", eigh_impl="kernel")
+    card_relax = wp.card_relax_energies(first, z_oc, "cuda")
+    jc.reset_launches()
+    out = {"phase": "workflows", "part": "a_confsearch",
+           "run": "confsearch n_octane.xyz " + " ".join(wp.CONF_FLAGS)
+                  + " --eigh_impl pallas", **run,
+           "relax_step_profile": prof, **band, **sweep,
+           "cpu_rerun_s": time.perf_counter() - t0,
+           "kick_first5_max_abs_e_diff_cpu_vs_card": float(np.abs(
+               card_kr["kick_energies"] - cpu_kr["kick_energies"]).max()),
+           "kick_first5_max_abs_x_diff_bohr": float(np.abs(
+               card_kr["kick_coords"] - cpu_kr["kick_coords"]).max()),
+           "relax_first3_max_abs_e_diff_cpu_vs_card": float(np.abs(
+               card_relax - cpu_kr["relax_energies"]).max()),
+           "relax_first3_card_rerun_vs_run": float(np.abs(
+               card_relax - card_kr["relax_energies"]).max()),
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["finite"] and run["nonfinite"] == 0 and run["rounds"] == 2,
+         "(a) confsearch", out)
+    gate(by_shape.get("16x104x104 f64 sweeps=9", 0) > 0
+         and by_shape.get("16x78x78 f64 sweeps=15", 0) > 0,
+         "(a) no K1 launch at 16x104 or 16x78", out)
+    gate(band["max_abs_e_diff_k1_vs_eigh"] <= 1e-10, "(a) band check", out)
+    gate(sweep["rfo_max_rel_offdiagonal"] <= 1e-12, "(a) RS-RFO sweeps", out)
+    gate(max(out["kick_first5_max_abs_e_diff_cpu_vs_card"],
+             out["relax_first3_max_abs_e_diff_cpu_vs_card"]) <= 1e-8,
+         "(a) card vs CPU", out)
+
+    # (b) relaxedscan along the forming C1-C1' bond
+    jc.reset_launches()
+    run = wp.relaxedscan_run(da_xyz, "cuda", f"{work}/scan")
+    v, by_shape = take()
+    t0 = time.perf_counter()
+    e_card = wp.scan_first_point(da, z_da, "cuda")
+    jc.reset_launches()
+    e_cpu = wp.scan_first_point(da, z_da, "cpu", eigh_impl="kernel")
+    out = {"phase": "workflows", "part": "b_relaxedscan",
+           "run": "relaxedscan diels_alder.xyz " + " ".join(wp.SCAN_FLAGS)
+                  + " --eigh_impl pallas", **run,
+           "cpu_rerun_s": time.perf_counter() - t0,
+           "first_point_first3_max_abs_e_diff_cpu_vs_card": float(np.abs(
+               e_card - e_cpu).max()),
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["finite"] and run["points"] == 6
+         and run["max_constraint_dev_ang"] <= 1e-4, "(b) relaxedscan", out)
+    gate(out["first_point_first3_max_abs_e_diff_cpu_vs_card"] <= 1e-8,
+         "(b) card vs CPU", out)
+
+    # (c) orientsearch: the dienophile placed 3.5 Angstrom off, 16 samples
+    jc.reset_launches()
+    run = wp.orientsearch_run(da_xyz, "cuda", f"{work}/orient")
+    v, by_shape = take()
+    t0 = time.perf_counter()
+    diff = wp.orientsearch_cpu_check(da, z_da, "cuda")
+    jc.reset_launches()
+    out = {"phase": "workflows", "part": "c_orientsearch",
+           "run": "orientsearch diels_alder.xyz " + " ".join(wp.ORIENT_FLAGS)
+                  + " --eigh_impl pallas", **run,
+           "cpu_rerun_s": time.perf_counter() - t0,
+           "first3_max_abs_e_diff_cpu_vs_card": diff,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["finite"] and run["sorted"] and run["samples"] == 16,
+         "(c) orientsearch", out)
+    gate(by_shape.get("16x72x72 f64 sweeps=9", 0) > 0
+         and by_shape.get("16x54x54 f64 sweeps=14", 0) > 0,
+         "(c) no K1 launch at 16x72 or 16x54", out)
+    gate(diff <= 1e-8, "(c) card vs CPU", out)
+
+    # (d) metadynamics on the C1-C1' distance, Langevin
+    jc.reset_launches()
+    run = wp.metadynamics_run(da, z_da, "cuda")
+    v, by_shape = take()
+    t0 = time.perf_counter()
+    de, dx = wp.metadynamics_cpu_check(da, z_da, "cuda")
+    jc.reset_launches()
+    out = {"phase": "workflows", "part": "d_metadynamics",
+           "run": f"run_metadynamics cv {wp.METAD_CV} langevin, "
+                  f"{wp.METAD_HILLS} hills every {wp.METAD_EVERY} steps",
+           **run, "cpu_rerun_s": time.perf_counter() - t0,
+           "first5_max_abs_e_diff_cpu_vs_card": de,
+           "first5_max_abs_x_diff_bohr": dx,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["finite"], "(d) metadynamics", out)
+    gate(de <= 1e-10 and dx <= 1e-9, "(d) card vs CPU", out)
+
+    # (e) run_autots with a v2 workflow between the flagship's IRC ends
+    reactant = full_res.reactant_coords.cpu().numpy()
+    product = full_res.product_coords.cpu().numpy()
+    r_xyz, p_xyz = wp.write_pair(work, reactant, product, z_da)
+    jc.reset_launches()
+    run = wp.autots_v2_run(r_xyz, p_xyz, "cuda", f"{work}/v2")
+    v, by_shape = take()
+    t0 = time.perf_counter()
+    e_card = run.pop("neb_energies")[:wp.V2_CMP_ITERATIONS]
+    e_cpu = wp.v2_neb_cpu_rerun(r_xyz, p_xyz, f"{work}/v2_cpu")
+    saddle = next(r for r in run["reports"] if r["step"] == "saddle")
+    freq = next(r for r in run["reports"] if r["step"] == "freq")
+    out = {"phase": "workflows", "part": "e_autots_v2",
+           "run": "run_autots irc_reactant.xyz -prod irc_product.xyz -sqm2 "
+                  "-cfg v2.json (neb -> saddle -> freq -> irc)", **run,
+           "saddle_converged": saddle["converged"],
+           "freq_n_imaginary": freq["n_imaginary"],
+           "flagship_n_imaginary": full_res.n_imaginary,
+           "ts_energy_minus_flagship_ts": saddle["energy"]
+           - full_res.ts_energy,
+           "cpu_rerun_s": time.perf_counter() - t0,
+           "neb_first2_max_abs_e_diff_cpu_vs_card": float(np.abs(
+               e_card - e_cpu).max()),
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["steps"] == ["neb", "saddle", "freq", "irc"]
+         and run["ts_written"], "(e) v2 workflow", out)
+    # the saddle step refines the flagship's own TS: one imaginary mode,
+    # its energy that of the flagship's saddle
+    gate(saddle["converged"] and freq["n_imaginary"] == 1
+         and abs(out["ts_energy_minus_flagship_ts"]) <= 1e-6,
+         "(e) v2 saddle", out)
+    gate(out["neb_first2_max_abs_e_diff_cpu_vs_card"] <= 1e-8,
+         "(e) card vs CPU", out)
+
+    # (f) run_mapper from the Diels-Alder reactant: the batched AFIR
+    # executor (batch_size 2), 2 explorations, each task's AutoTS at the
+    # mapper's defaults
+    jc.reset_launches()
+    run = wp.mapper_run(da_xyz, "cuda", f"{work}/mapper")
+    v, by_shape = take()
+    batches = run.pop("afir_batches")
+    t0 = time.perf_counter()
+    e_card = wp.afir_executor_first_steps(batches[0], z_da, "cuda")
+    jc.reset_launches()
+    e_cpu = wp.afir_executor_first_steps(batches[0], z_da, "cpu",
+                                         eigh_impl="kernel")
+    out = {"phase": "workflows", "part": "f_run_mapper",
+           "run": "run_mapper diels_alder.xyz -sqm2 -cfg mapper.json "
+                  f"{json.dumps(wp.mapper_cfg())} --eigh_impl pallas, then "
+                  "run_mapper --resume --max_iter 0", **run,
+           "afir_batches": len(batches),
+           "cpu_rerun_s": time.perf_counter() - t0,
+           "executor_first3_max_abs_e_diff_cpu_vs_card": float(np.abs(
+               e_card - e_cpu).max()),
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["network_json"] and run["resumed_nodes"] == run["nodes"]
+         and run["priorities_finite"] and len(batches) > 0,
+         "(f) run_mapper", out)
+    # every task ran its AutoTS to the end: none skipped for an error, and
+    # each one's TS count is reported (a count other than one adds no edge)
+    gate(run["skipped_for_error"] == 0
+         and len(run["task_n_imaginary"]) == run["tasks"],
+         "(f) tasks skipped", out)
+    gate(out["executor_first3_max_abs_e_diff_cpu_vs_card"] <= 1e-8,
+         "(f) card vs CPU", out)
+    tmp.cleanup()
+
+    # the new shapes, timed; then every other f64 batch the phase launched
+    phase_s = time.perf_counter() - t_phase
+    gen = torch.Generator().manual_seed(3)
+    for b, d, where in ((1, 104, "n-octane SQM2 band per gradient"),
+                        (16, 104, "n-octane band of 16 conformers"),
+                        (1, 78, "n-octane RFO step"),
+                        (16, 78, "n-octane RFO step of 16 conformers"),
+                        (16, 54, "Diels-Alder RFO step of 16 orientations")):
+        rows.append(check_row(jc, gen, b, d, torch.float64, where, card))
+    held = {(r["batch"], r["d"], r["sweeps"]) for r in rows}
+    for b, dd, sw in sorted({(b, dd, sw) for b, dd, tag, sw in seen_shapes
+                             if tag == "f64" and (b, dd, sw) not in held}):
+        rows.append(check_row(jc, gen, b, dd, torch.float64,
+                              f"batch of {b} in workflows", card,
+                              timed=False, sweeps=sw))
+    emit({"phase": "workflows_done", "seconds": phase_s,
+          "with_kernel_rows_s": time.perf_counter() - t_phase,
+          "kernel_launches": totals, "card": card})
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1153,7 +1473,8 @@ def main():
     main_path += [full_launches,
                   phase_methods(jc, card, saddle_start(full_res)),
                   phase_reaction_paths(jc, card, full_res, rows),
-                  phase_dynamics_and_double_ended(jc, card, full_res)]
+                  phase_dynamics_and_double_ended(jc, card, full_res),
+                  phase_workflows(jc, card, full_res, rows)]
 
     kernels = []
     for variant in jc.VARIANTS:

@@ -1,6 +1,7 @@
-"""`python -m multioptpy_tpu_torch <command> ...`: `optmain` and
-`run_autots` (see `cli.py`); the device defaults to the CUDA card
-(`--device cpu` for the CPU)."""
+"""`python -m multioptpy_tpu_torch <command> ...`: `optmain`, `nebmain`,
+`ircmain`, `run_autots`, `confsearch`, `relaxedscan`, `orientsearch`,
+`run_mapper`, `mdmain` and `ieipmain` (see `cli.py`); the device defaults
+to the CUDA card (`--device cpu` for the CPU)."""
 
 import sys
 

@@ -1,5 +1,7 @@
 """Command-line entry points of the port: `optmain`, `nebmain`,
-`ircmain`, `run_autots`, `mdmain` and `ieipmain`.
+`ircmain`, `run_autots` (with the v2 workflow engine), `confsearch`,
+`relaxedscan`, `orientsearch`, `run_mapper`, `mdmain` and `ieipmain`,
+every command of the reference.
 
 Counterpart of `multioptpy_tpu/cli.py` for the flags the ported engines
 serve: the input and its charge and multiplicity, the SQM/SQM2, LJ and
@@ -11,10 +13,12 @@ potential flag of the reference (`-ma -kp -kpv2 -akp -ka -kav2 -kda -kdav2
 float64 switch, `optmain`'s `-diis`, `-delta`, constraints (`-fix`, `-pc`,
 `-gfix`) and guards (`-sc`, `-dc`, `-negeigval`), every flag of `nebmain`
 but `-spng` (item 15), `ircmain`'s `-im` and `-is`, `run_autots`'s `-cfg`,
-`-prod`, `-nimg` and `-p`, and every flag of `mdmain` and `ieipmain`.
-`--device` picks the card (default `cuda`) or the CPU. Any other flag of
-the reference exits with status 2 and names ROADMAP Queue 1 item 18. Atom
-selections accept the "1,2,4-7" syntax.
+`-prod`, `-nimg` and `-p`, and every flag of `confsearch`,
+`relaxedscan`, `orientsearch`, `run_mapper`, `mdmain` and `ieipmain`.
+`--device` picks the card (default `cuda`) or the CPU; `--eigh_impl`
+picks the eigensolver of the RS-RFO step and of the SQM band. Any other
+flag of the reference exits with status 2 and names ROADMAP Queue 1 item
+18. Atom selections accept the "1,2,4-7" syntax.
 """
 
 import argparse
@@ -180,6 +184,13 @@ def _base_parser(description):
     p.add_argument("-spin", "--spin_multiplicity", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--eigh_impl", default=None,
+                   choices=("xla", "pallas", "kernel"),
+                   help="eigensolver of the RS-RFO step and of the SQM band: "
+                        "pallas = the Jacobi kernel on the card, kernel = "
+                        "its algorithm on any device (default: "
+                        "torch.linalg.eigh for the step, the kernel for the "
+                        "band on the card)")
     return p
 
 
@@ -228,8 +239,11 @@ def _make_calculator(args):
     if name not in ("lj", "sqm", "sqm2", "muller_brown"):
         raise NotImplementedError(
             f"calculator '{name}' arrives with ROADMAP Queue 1 item 14")
+    kw = {}
+    if args.eigh_impl and name in ("sqm", "sqm2"):
+        kw["eigh_impl"] = args.eigh_impl
     return get_calculator(name, charge=charge, multiplicity=mult,
-                          device=args.device)
+                          device=args.device, **kw)
 
 
 def _asym_ellipsoid(vals, z):
@@ -529,6 +543,8 @@ def _opt_config(args):
               trust_radius_min_ang=args.min_trust_radius,
               diis_variant=getattr(args, "diis_variant", None),
               delta=getattr(args, "delta", 1.0))
+    if args.eigh_impl:
+        kw["eigh_impl"] = args.eigh_impl
     mh = args.model_hessian or args.use_model_hessian
     if mh:
         kw["init_hessian"] = f"model:{mh}"
@@ -636,11 +652,13 @@ def run_optmain(argv=None):
     return 0 if bool(res.converged) else 1
 
 
-def run_autots_cli(argv=None):
+def run_autots_cli(argv=None, stage_hook=None):
     """AutoTS pipeline: ts.xyz, irc_end_1.xyz and irc_end_2.xyz in
     `<input>_autots/`. `-cfg` takes a JSON file: the reference's v1 legacy
-    format (step1_settings..step4_settings) or {"autots": {scalar fields
-    of AutoTSConfig}}."""
+    format (step1_settings..step4_settings), {"autots": {scalar fields
+    of AutoTSConfig}}, or a v2 "workflow" (workflows/autots_v2.py: its step
+    reports in workflow_report.json, and ts.xyz once a saddle step ran).
+    `stage_hook` goes to the v2 engine."""
     p = _base_parser("multioptpy_tpu_torch AutoTS")
     p.add_argument("-cfg", "--config", default=None, help="JSON config")
     p.add_argument("-prod", "--product", default=None, help="product xyz")
@@ -665,8 +683,8 @@ def run_autots_cli(argv=None):
         with open(args.config) as f:
             cfg = json.load(f)
         if "workflow" in cfg:
-            raise NotImplementedError(
-                "the v2 workflow engine arrives with ROADMAP Queue 1 item 16")
+            return _run_autots_v2(args, symbols, coords, z, calc, cfg,
+                                  stage_hook)
         if any(f"step{i}_settings" in cfg for i in range(1, 5)) or \
                 any(k in cfg for k in ("skip_step1", "skip_to_step4",
                                        "run_step4")):
@@ -704,6 +722,29 @@ def run_autots_cli(argv=None):
     print(f"AutoTS: TS E = {res.ts_energy:.8f} ({res.n_imaginary} imaginary)"
           f"; barriers {res.barrier_forward:.6f} / "
           f"{res.barrier_backward:.6f} Ha -> {out}/")
+    return 0
+
+
+def _run_autots_v2(args, symbols, coords, z, calc, cfg, stage_hook=None):
+    """The v2 dynamic workflow engine on a config with a "workflow" list."""
+    from multioptpy_tpu_torch.io.xyz import read_xyz
+    from multioptpy_tpu_torch.units import ANGSTROM2BOHR
+    from multioptpy_tpu_torch.workflows.autots_v2 import run_autots_v2
+
+    prod = None
+    if args.product:
+        _, prod_ang = read_xyz(args.product)
+        prod = torch.as_tensor(prod_ang * ANGSTROM2BOHR, dtype=coords.dtype,
+                               device=coords.device)
+    engine, reports = run_autots_v2(calc, coords, z, cfg,
+                                    product_coords=prod, device=args.device,
+                                    stage_hook=stage_hook)
+    out = _outdir(args, "_autots")
+    with open(os.path.join(out, "workflow_report.json"), "w") as f:
+        json.dump(reports, f, indent=1, default=str)
+    if engine.ctx.get("ts") is not None:
+        _write(os.path.join(out, "ts.xyz"), symbols, engine.ctx["ts"])
+    print(f"AutoTS v2: {len(reports)} steps -> {out}/")
     return 0
 
 
@@ -1368,20 +1409,274 @@ def run_ieipmain(argv=None):
     return 0
 
 
+def run_confsearch(argv=None, stage_hook=None):
+    """Conformer search: conformers.xyz (energy-sorted) and EQ_energy.csv
+    in `<input>_confsearch/`. `stage_hook` goes to `conformer_search`."""
+    p = _base_parser("multioptpy_tpu_torch conformer search")
+    p.add_argument("-bf", "--base_force", type=float, default=100.0,
+                   help="AFIR kick strength [kJ/mol]")
+    p.add_argument("-ms", "-nsample", "--max_samples", type=int, default=50,
+                   help="max sampling rounds")
+    p.add_argument("-bsize", "--batch_size", type=int, default=16)
+    p.add_argument("-nl", "--number_of_lowest", type=int, default=5,
+                   help="stop after this many rounds without a lowest-"
+                        "energy-list update")
+    p.add_argument("-nr", "--number_of_rank", type=int, default=10,
+                   help="length of the watched lowest-energy list")
+    p.add_argument("-tgta", "--target_atoms", nargs="*", default=None,
+                   help="restrict AFIR kicks to these atoms, e.g. 1-3,7")
+    p.add_argument("-st", "--sampling_temperature", type=float,
+                   default=298.15,
+                   help="Boltzmann seed-selection temperature [K]")
+    p.add_argument("-nost", "--no_stochastic", action="store_true",
+                   help="always kick from the initial EQ")
+    p.add_argument("-pbc", "--preserve_bond_connectivity",
+                   action="store_true",
+                   help="reject conformers whose bond connectivity differs "
+                        "from the seed")
+    p.add_argument("-tabu", "--tabu_search", action="store_true",
+                   help="frequency-penalized seed selection")
+    p.add_argument("-alpha", "--tabu_alpha", type=float, default=0.5,
+                   help="tabu visit-count penalty coefficient")
+    args = _parse(p, argv)
+    symbols, coords, z = _load_system(args)
+    calc = _make_calculator(args)
+    from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig
+    from multioptpy_tpu_torch.io.xyz import write_trajectory
+    from multioptpy_tpu_torch.units import BOHR2ANGSTROM
+    from multioptpy_tpu_torch.workflows.confsearch import (ConfSearchConfig,
+                                                           conformer_search)
+
+    tgt = None
+    if args.target_atoms:
+        tgt = tuple(num_parse(args.target_atoms[0]))
+    kw = {}
+    if args.eigh_impl:
+        kw["opt"] = OptimizeConfig(method="rfo_fsb",
+                                   eigh_impl=args.eigh_impl)
+    res = conformer_search(calc, coords, z, ConfSearchConfig(
+        n_rounds=args.max_samples, batch_size=args.batch_size,
+        base_gamma=args.base_force,
+        temperature=args.sampling_temperature,
+        preserve_bonds=args.preserve_bond_connectivity,
+        tabu_weight=args.tabu_alpha if args.tabu_search else 0.0,
+        target_atoms=tgt, stochastic=not args.no_stochastic,
+        number_of_rank=args.number_of_rank,
+        number_of_lowest=args.number_of_lowest, **kw),
+        device=args.device, stage_hook=stage_hook)
+    out = _outdir(args, "_confsearch")
+    write_trajectory(os.path.join(out, "conformers.xyz"), symbols,
+                     res.conformers * BOHR2ANGSTROM,
+                     [f"E = {e:.10f}" for e in res.energies])
+    np.savetxt(os.path.join(out, "EQ_energy.csv"), res.energies,
+               header="energy_hartree")
+    print(f"{len(res.energies)} unique conformers "
+          f"({res.n_generated} candidates) -> {out}/")
+    print(f"rejected: {res.n_rejected_bonds} for bond connectivity, "
+          f"{res.n_nonfinite} non-finite")
+    return 0
+
+
+def run_relaxedscan(argv=None):
+    """Relaxed PES scan: scan.xyz with scan_profile.csv (-sk/-sa/-sr) or
+    energy_profile.csv (-scan triples) in `<input>_scan/`."""
+    p = _base_parser("multioptpy_tpu_torch relaxed scan")
+    p.add_argument("-sk", "--scan_kind", default="bond")
+    p.add_argument("-sa", "--scan_atoms", default=None,
+                   help="e.g. 1,2 for a bond")
+    p.add_argument("-sr", "--scan_range", default=None,
+                   help="start,stop,npoints")
+    p.add_argument("-scan", "--scan_tgt", nargs="*", default=None,
+                   help="repeated [kind atoms start,stop] triples, e.g. "
+                        "-scan bond 1,2 1.0,1.8 angle 1,2,3 100,120")
+    p.add_argument("-nsample", "--number_of_samples", type=int, default=10,
+                   help="scan points")
+    p.add_argument("-fo", "--first_only", action="store_true",
+                   help="seed every point from the input structure")
+    args = _parse(p, argv)
+    symbols, coords, z = _load_system(args)
+    calc = _make_calculator(args)
+    from multioptpy_tpu_torch.io.xyz import write_trajectory
+    from multioptpy_tpu_torch.units import BOHR2ANGSTROM
+    from multioptpy_tpu_torch.workflows import relaxed_scan
+    from multioptpy_tpu_torch.workflows.relaxed_scan import relaxed_scan_multi
+
+    if args.scan_tgt:
+        spec = list(args.scan_tgt)
+        if len(spec) % 3:
+            raise SystemExit("-scan expects repeated [kind atoms v1,v2] "
+                             "triples")
+        targets = []
+        for i in range(0, len(spec), 3):
+            v1, v2 = spec[i + 2].split(",")
+            targets.append((spec[i], num_parse(spec[i + 1]),
+                            float(v1), float(v2)))
+        res = relaxed_scan_multi(calc, coords, z, targets,
+                                 args.number_of_samples,
+                                 config=_opt_config(args),
+                                 first_only=args.first_only,
+                                 device=args.device)
+        out = _outdir(args, "_scan")
+        write_trajectory(os.path.join(out, "scan.xyz"), symbols,
+                         res.geometries * BOHR2ANGSTROM,
+                         [f"E = {e:.10f}" for e in res.energies])
+        header = ",".join(t[0] for t in targets) + ",energy"
+        np.savetxt(os.path.join(out, "energy_profile.csv"),
+                   np.column_stack([res.values, res.energies]),
+                   header=header, delimiter=",")
+        print(f"{len(res.energies)} scan points ({len(targets)} targets) "
+              f"-> {out}/")
+        return 0
+    if not (args.scan_atoms and args.scan_range):
+        raise SystemExit("give either -scan triples or -sa/-sr")
+    start, stop, npts = args.scan_range.split(",")
+    res = relaxed_scan(calc, coords, z, args.scan_kind,
+                       num_parse(args.scan_atoms), float(start), float(stop),
+                       int(npts), config=_opt_config(args),
+                       device=args.device)
+    out = _outdir(args, "_scan")
+    write_trajectory(os.path.join(out, "scan.xyz"), symbols,
+                     res.geometries * BOHR2ANGSTROM,
+                     [f"{v:.4f} -> E = {e:.10f}"
+                      for v, e in zip(res.values, res.energies)])
+    np.savetxt(os.path.join(out, "scan_profile.csv"),
+               np.stack([res.values, res.energies], 1),
+               header="value energy_hartree")
+    print(f"scan done ({int(npts)} points) -> {out}/")
+    return 0
+
+
+def run_orientsearch(argv=None):
+    """Orientation sampling of a mobile fragment: orientations.xyz
+    (energy-sorted) in `<input>_orient/`."""
+    p = _base_parser("multioptpy_tpu_torch orientation search")
+    p.add_argument("-part", "--fragment", required=True,
+                   help="atoms of the mobile fragment, e.g. 5-9")
+    p.add_argument("-nsample", "--n_samples", type=int, default=16)
+    p.add_argument("-dist", "--distance", type=float, default=None,
+                   help="fragment-center separation [Angstrom] before "
+                        "orientation sampling")
+    args = _parse(p, argv)
+    symbols, coords, z = _load_system(args)
+    calc = _make_calculator(args)
+    from multioptpy_tpu_torch.io.xyz import write_trajectory
+    from multioptpy_tpu_torch.units import BOHR2ANGSTROM
+    from multioptpy_tpu_torch.workflows.orientsearch import orientation_search
+
+    res = orientation_search(calc, coords, z, num_parse(args.fragment),
+                             n_samples=args.n_samples,
+                             config=_opt_config(args),
+                             distance_ang=args.distance, device=args.device)
+    out = _outdir(args, "_orient")
+    write_trajectory(os.path.join(out, "orientations.xyz"), symbols,
+                     res.geometries * BOHR2ANGSTROM,
+                     [f"E = {e:.10f}" for e in res.energies])
+    print(f"{len(res.energies)} orientations -> {out}/")
+    return 0
+
+
+def run_mapper_cli(argv=None, stage_hook=None):
+    """Reaction-network mapping: network.json in `<input>_mapper/`. `-cfg`
+    takes the reference's format (mapper_settings plus the stepN_settings
+    of each task's AutoTS) or {"mapper": {scalar fields of MapperConfig}};
+    the command-line flags win. `stage_hook` goes to `map_network`."""
+    p = _base_parser("multioptpy_tpu_torch reaction network mapper")
+    p.add_argument("-cfg", "--config", default=None)
+    p.add_argument("-maxnodes", "--max_nodes", type=int, default=10)
+    p.add_argument("--resume", nargs="?", const="", default=None,
+                   help="restart from a persisted network JSON (default: "
+                        "<out>/network.json)")
+    p.add_argument("--temperature", type=float, default=None,
+                   help="Boltzmann temperature [K]")
+    p.add_argument("--rmsd_threshold", type=float, default=None)
+    p.add_argument("--max_iter", type=int, default=None,
+                   help="max exploration tasks")
+    p.add_argument("--afir_gamma", type=float, default=None,
+                   help="AFIR gamma [kJ/mol]")
+    p.add_argument("--max_pairs", type=int, default=None)
+    p.add_argument("--dist_lower", type=float, default=None)
+    p.add_argument("--dist_upper", type=float, default=None)
+    p.add_argument("--rng_seed", type=int, default=None)
+    p.add_argument("--active_atoms", nargs="*", type=int, default=None,
+                   help="restrict AFIR pairs to these 1-indexed atoms")
+    p.add_argument("--negative_gamma", action="store_true",
+                   help="also push fragments apart (negative gamma)")
+    p.add_argument("--exclude_nodes", nargs="*", type=int, default=None,
+                   help="EQ node ids never explored further")
+    p.add_argument("--exclude_bond_rearrangement", action="store_true",
+                   help="auto-exclude EQs whose bond topology differs "
+                        "from the seed (EQ0)")
+    p.add_argument("--use_rcmc", action="store_true",
+                   help="kinetics-driven RCMC priority queue")
+    p.add_argument("--rcmc_temperature", type=float, default=None)
+    p.add_argument("--rcmc_time", type=float, default=None,
+                   help="RCMC reaction time [s]")
+    p.add_argument("--rcmc_start_node", type=int, default=None)
+    args = _parse(p, argv)
+    symbols, coords, z = _load_system(args)
+    calc = _make_calculator(args)
+    from multioptpy_tpu_torch.workflows.mapper import (MapperConfig,
+                                                       map_network,
+                                                       mapper_config_from_v1)
+
+    overrides = dict(
+        max_nodes=args.max_nodes,
+        temperature_k=(args.rcmc_temperature if args.use_rcmc
+                       and args.rcmc_temperature is not None
+                       else args.temperature),
+        rmsd_threshold_ang=args.rmsd_threshold,
+        max_explorations=args.max_iter, afir_gamma=args.afir_gamma,
+        max_pairs_per_node=args.max_pairs,
+        dist_lower_ang=args.dist_lower, dist_upper_ang=args.dist_upper,
+        seed=args.rng_seed,
+        active_atoms=tuple(args.active_atoms) if args.active_atoms else None,
+        include_negative_gamma=args.negative_gamma or None,
+        excluded_node_ids=(tuple(args.exclude_nodes)
+                           if args.exclude_nodes else None),
+        exclude_bond_rearrangement=args.exclude_bond_rearrangement or None,
+        queue="rcmc" if args.use_rcmc else None,
+        rcmc_reaction_time_s=args.rcmc_time,
+        rcmc_start_node=args.rcmc_start_node)
+    cfg_json = {}
+    if args.config:
+        with open(args.config) as f:
+            cfg_json = json.load(f)
+    if "mapper_settings" in cfg_json or \
+            any(f"step{i}_settings" in cfg_json for i in range(1, 5)):
+        mcfg = mapper_config_from_v1(cfg_json, **overrides)
+    else:
+        kw = dict(cfg_json.get("mapper", {}))
+        kw.update({k: v for k, v in overrides.items() if v is not None})
+        mcfg = MapperConfig(**kw)
+    out = _outdir(args, "_mapper")
+    resume = args.resume
+    if resume == "":
+        resume = os.path.join(out, "network.json")
+    res = map_network(calc, coords, z, mcfg, resume=resume,
+                      device=args.device, stage_hook=stage_hook)
+    res.save(os.path.join(out, "network.json"), symbols)
+    print(f"network: {len(res.nodes)} EQ nodes, {len(res.edges)} TS edges "
+          f"-> {out}/network.json")
+    print(f"skipped tasks: {sum(res.skipped.values())} {res.skipped}")
+    return 0
+
+
 COMMANDS = {
     "optmain": run_optmain,
     "nebmain": run_nebmain,
     "ircmain": run_ircmain,
     "run_autots": run_autots_cli,
+    "confsearch": run_confsearch,
+    "relaxedscan": run_relaxedscan,
+    "orientsearch": run_orientsearch,
+    "run_mapper": run_mapper_cli,
     "mdmain": run_mdmain,
     "ieipmain": run_ieipmain,
 }
 
-# the reference's other commands, with the ROADMAP item that ports them
-UNPORTED_COMMANDS = {
-    "confsearch": 16, "relaxedscan": 16, "orientsearch": 16,
-    "run_mapper": 16,
-}
+# the reference's commands not ported yet, with the ROADMAP item that ports
+# each (none is left)
+UNPORTED_COMMANDS = {}
 
 
 def main(argv=None):

@@ -32,11 +32,25 @@ from multioptpy_tpu_torch.io.xyz import read_trajectory, write_xyz
 from multioptpy_tpu_torch.ops import hosteval
 from multioptpy_tpu_torch.periodic import z_to_symbol
 from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
+from multioptpy_tpu_torch.reaction_paths import CPU_RERUN_BAND
 from multioptpy_tpu_torch.units import AMU2AU, BOHR2ANGSTROM, KB_HARTREE
 
 MD_TEMPERATURE = 300.0
 MD_DT_FS = 0.5
 MD_CMP_STEPS = 5
+# the depths of the dynamics phase of chip_smoke.py, cut when the
+# workflows phase came so that the script stays inside its time limit on
+# the slowest host seen (from: MD runs 50 steps, the Nose-Hoover run 200;
+# ieipmain -ns 60, -dimer_maxiter 30, -gnt_mi 8, -2pshs_num 5). The NVE
+# run keeps its 50 steps (its drift check spans 25 fs); the card-vs-CPU
+# checks compare the first steps or iterations, which the cuts keep
+MD_STEPS = 30
+MD_MAIN_STEPS = 100
+NVE_STEPS = 50
+IEIP_STEPS = 30
+DIMER_ITERATIONS = 15
+GNT_ITERATIONS = 4
+PSHS_SPHERES = 3
 # the Diels-Alder numbering: 1-4 the diene carbons, 5-10 their hydrogens,
 # 11-13 the dienophile carbons, 14 its oxygen, 15-18 its hydrogens
 _BIAS_FLAGS = ["-kp", "0.05", "1.47", "2,3", "-ka", "0.02", "120", "1,2,3",
@@ -45,20 +59,20 @@ _BIAS_FLAGS = ["-kp", "0.05", "1.47", "2,3", "-ka", "0.02", "120", "1,2,3",
                "11,12", "-metad", "bond", "2", "0.2", "1,11"]
 
 
-def md_runs(n_steps=50, main_steps=200):
+def md_runs(n_steps=MD_STEPS, main_steps=MD_MAIN_STEPS, nve_steps=NVE_STEPS):
     """(label, mdmain flags, thermostat held to the CPU or None)."""
     thermo = lambda t, n=n_steps: ["-thermo", t, "-time", str(n)]  # noqa
     return [
-        ("nosehoover -time 200", thermo("nosehoover", main_steps),
+        (f"nosehoover -time {main_steps}", thermo("nosehoover", main_steps),
          "nosehoover"),
-        ("none", thermo("none"), "none"),
+        ("none", thermo("none", nve_steps), "none"),
         ("nosehooverchain", thermo("nosehooverchain"), "nosehooverchain"),
         ("berendsen", thermo("berendsen"), "berendsen"),
         ("langevin", thermo("langevin"), "langevin"),
         ("-cc SHAKE C2-C3", thermo("nosehoover") + ["-cc", "1.47", "2,3"],
          None),
-        ("-ct 25 500", thermo("berendsen") + ["-ct", str(n_steps // 2),
-                                              "500"], None),
+        (f"-ct {n_steps // 2} 500",
+         thermo("berendsen") + ["-ct", str(n_steps // 2), "500"], None),
         ("-ntraj 2", thermo("nosehoover", n_steps // 2) + ["-ntraj", "2"],
          None),
         ("bias -kp -ka -kda -wp -brp -metad", thermo("nosehoover")
@@ -430,7 +444,7 @@ def relaxed_minima(reactant, product, z, device, n_steps=100):
     return out
 
 
-def ieip_runs(n_steps=60):
+def ieip_runs(n_steps=IEIP_STEPS):
     """(label, engine, ieipmain flags, start, end or None, check): start
     and end name the flagship's IRC endpoints ("reactant", "product") or
     their relaxed minima ("reactant_min", "product_min"). 2PSHS grows its
@@ -447,12 +461,14 @@ def ieip_runs(n_steps=60):
              "reactant", "product", first),
             ("spring_pair", "spring_pair", ["-use_spm", "-ns", str(n_steps)],
              "reactant", "product", first),
-            ("dimer", "dimer", ["-use_dimer", "-dimer_maxiter", "30"],
+            ("dimer", "dimer", ["-use_dimer", "-dimer_maxiter",
+                                str(DIMER_ITERATIONS)],
              "reactant", "product", first),
-            ("gnt", "gnt", ["-gnt", "-gnt_step", "0.4", "-gnt_mi", "8"],
+            ("gnt", "gnt", ["-gnt", "-gnt_step", "0.4", "-gnt_mi",
+                            str(GNT_ITERATIONS)],
              "reactant", "product", first),
             ("2pshs", "2pshs", ["-2pshs", "-2pshs_step", "0.1",
-                                "-2pshs_num", "5"],
+                                "-2pshs_num", str(PSHS_SPHERES)],
              "product_min", "reactant_min", first),
             ("addf reactant", "addf", ["-addf", "-addf_nadd", "2",
                                        "-addf_num", "10"],
@@ -546,7 +562,7 @@ def first_iterations_diff(engine, a, b):
 
 
 def meta_irc_run(start, z, device, n_steps):
-    impl = "auto" if torch.device(device).type == "cuda" else "kernel"
+    impl = "auto" if torch.device(device).type == "cuda" else CPU_RERUN_BAND
     t0 = time.perf_counter()
     res = meta_irc(SQM2(eigh_impl=impl, device=device),
                    torch.as_tensor(np.asarray(start), device=device), z,
@@ -576,7 +592,7 @@ def second_order_saddle_bias(ts, z, pair=(2, 3), spring_const=-1.0):
 
 def modekill_run(start, z, device, keep_order, max_rounds, opt_steps,
                  bias_engine=None):
-    impl = "auto" if torch.device(device).type == "cuda" else "kernel"
+    impl = "auto" if torch.device(device).type == "cuda" else CPU_RERUN_BAND
     calc = SQM2(eigh_impl=impl, device=device)
     t0 = time.perf_counter()
     coords, n_imag = modekill(

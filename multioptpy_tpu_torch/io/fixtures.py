@@ -14,6 +14,7 @@ from multioptpy_tpu_torch.units import ANGSTROM2BOHR
 
 __all__ = [
     "aldol_adduct",
+    "alkane_chain",
     "aldol_reactant",
     "diels_alder_reactant",
     "s8_crown",
@@ -206,3 +207,45 @@ def water_cluster(n, spacing=3.0):
     coords = np.concatenate(out[:n]) * ANGSTROM2BOHR
     z = np.tile([8, 1, 1], n).astype(np.int64)
     return coords, z
+
+
+def alkane_chain(n_carbons):
+    """All-anti n-alkane C_nH_{2n+2} with standard geometry (r(CC) 1.54 A,
+    r(CH) 1.09 A, CCC 112 deg) — the procedural large-molecule scale
+    fixture (~100 atoms at n=32). Returns (coords_bohr, z)."""
+    d_cc, d_ch = 1.54, 1.09
+    half = np.deg2rad(112.0) / 2.0
+    dx, dz = d_cc * np.sin(half), d_cc * np.cos(half)
+    c = np.array([[i * dx, 0.0, (i % 2) * dz] for i in range(n_carbons)])
+
+    def _tet_h(center, u_nbrs, n_h):
+        """n_h hydrogens tetrahedrally arranged around `center`, away from
+        the unit vectors `u_nbrs` pointing at its carbon neighbors."""
+        cosb, sinb = np.cos(np.deg2rad(109.47)), np.sin(np.deg2rad(109.47))
+        if len(u_nbrs) == 2:  # CH2: pair in the +/-y half-planes
+            b = -(u_nbrs[0] + u_nbrs[1])
+            b /= np.linalg.norm(b)
+            y = np.array([0.0, 1.0, 0.0])
+            phi = np.deg2rad(107.5) / 2.0
+            return [center + d_ch * (b * np.cos(phi) + s * y * np.sin(phi))
+                    for s in (1.0, -1.0)]
+        u = u_nbrs[0]  # CH3 (or CH4 core): cone around -u
+        e1 = np.cross(u, [0.0, 1.0, 0.0])
+        if np.linalg.norm(e1) < 1e-8:
+            e1 = np.cross(u, [1.0, 0.0, 0.0])
+        e1 /= np.linalg.norm(e1)
+        e2 = np.cross(u, e1)
+        return [center + d_ch * (cosb * u + sinb *
+                                 (np.cos(2 * np.pi * k / 3) * e1 +
+                                  np.sin(2 * np.pi * k / 3) * e2))
+                for k in range(n_h)]
+
+    coords, z = list(c), [6] * n_carbons
+    for i in range(n_carbons):
+        nbrs = [j for j in (i - 1, i + 1) if 0 <= j < n_carbons]
+        u_nbrs = [(c[j] - c[i]) / np.linalg.norm(c[j] - c[i]) for j in nbrs]
+        n_h = 4 - len(nbrs)
+        for h in _tet_h(c[i], u_nbrs, n_h):
+            coords.append(h)
+            z.append(1)
+    return np.asarray(coords) * ANGSTROM2BOHR, np.asarray(z, dtype=np.int64)

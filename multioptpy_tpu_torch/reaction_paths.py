@@ -29,7 +29,17 @@ from multioptpy_tpu_torch.periodic import z_to_symbol
 from multioptpy_tpu_torch.units import BOHR2ANGSTROM
 
 ALDOL_IMAGES = 12
-ALDOL_STEPS = 20
+# iterations of each aldol band (cut from 20 to keep chip_smoke.py inside
+# its time limit: every band still redistributes twice, and -aneb 1 5 runs
+# past the 7 iterations its CPU rerun compares)
+ALDOL_STEPS = 10
+# the band eigensolver of every CPU rerun that diagonalizes hundreds of
+# bands a call (an exact Hessian: the IRC, method, meta-IRC and ModeKill
+# runs, the workflows' relaxations): the kernel's plain version took 4-67 s
+# of the host's CPU a rerun, LAPACK about a second. K1's band is held to
+# LAPACK's on the card itself (workflow_paths.band_check); the reruns'
+# steps keep the kernel's algorithm
+CPU_RERUN_BAND = "xla"
 IRC_METHODS = ("lqa", "euler", "rk4", "dvv", "hpc")
 # every model-Hessian kind and suffix (hessian/model.py)
 MODEL_KINDS = ("lindh", "lindh2007", "fischer", "schlegel", "swart", "gfn0",
@@ -232,12 +242,13 @@ def irc_runs(ts_coords, z, device, n_steps=15, methods=IRC_METHODS,
              launch_counter=None, workdir=None):
     """ircmain -sqm2 -im m -ns n from the flagship's TS for each method, and
     each one's first 3 energies rerun on the CPU (2 steps and the energy at
-    the third point, from one CPU TS Hessian). `launch_counter()`, if
-    given, is read after each card run (the K1 launches by shape)."""
+    the third point, from one CPU TS Hessian), the CPU's band through
+    `CPU_RERUN_BAND`. `launch_counter()`, if given, is read after each card
+    run (the K1 launches by shape)."""
     from multioptpy_tpu_torch.drivers.irc import IRCConfig, irc
     from multioptpy_tpu_torch.ops import hosteval
 
-    cpu_calc = SQM2(eigh_impl="kernel", device="cpu")
+    cpu_calc = SQM2(eigh_impl=CPU_RERUN_BAND, device="cpu")
     ts_cpu = torch.as_tensor(np.asarray(
         ts_coords.detach().cpu() if isinstance(ts_coords, torch.Tensor)
         else ts_coords))

@@ -1,9 +1,12 @@
 """Port parity: `python -m multioptpy_tpu_torch` against the JAX package's
 CLI: run_autots on Muller-Brown (also with a v1 config that asks for IDPP
-and a spline redistribution), optmain on H2O+ (also with the bare
--modelhess), nebmain on an Ar5 band and ircmain on Muller-Brown with each
-integrator write the same files; commands and flags outside the port exit
-with status 2 naming their ROADMAP item; the device defaults to the card."""
+and a spline redistribution, and with a v2 workflow), optmain on H2O+
+(also with the bare -modelhess), nebmain on an Ar5 band, ircmain on
+Muller-Brown with each integrator, and confsearch, relaxedscan,
+orientsearch and run_mapper on Ar clusters (Lennard-Jones) write the same
+files; every command of the reference dispatches; flags outside the port
+exit with status 2 naming their ROADMAP item; the device defaults to the
+card. The n-octane fixture matches the reference's."""
 
 import json
 
@@ -73,9 +76,15 @@ def test_optmain_writes_the_reference_geometry(tmp_path, capsys):
 
 
 def test_unported_commands_and_flags_exit_2(tmp_path, capsys):
+    from multioptpy_tpu_torch import cli
+
     args = _mb_inputs(tmp_path)
-    assert port_main.main(["confsearch", *args]) == 2
-    assert "ROADMAP Queue 1 item 16" in capsys.readouterr().err
+    # every command of the reference dispatches; none is left unported
+    assert cli.UNPORTED_COMMANDS == {}
+    assert set(ref_main.COMMANDS) <= set(port_main.COMMANDS)
+    for name in ref_main.COMMANDS:
+        assert port_main.COMMANDS[name].__name__ == \
+            ref_main.COMMANDS[name].__name__
     with pytest.raises(SystemExit) as exc:
         port_main.main(["run_autots", *args, "-freq", "--device", "cpu"])
     assert exc.value.code == 2
@@ -372,3 +381,191 @@ def test_nebmain_three_iterations_on_the_card(tmp_path, capsys):
     capsys.readouterr()
     _compare_neb_outputs(tmp_path / "cpu", tmp_path / "card")
 
+
+
+_AR4_ANG = ("4\nAr4\nAr 0.0 0.0 0.0\nAr 3.76 0.05 0.0\n"
+            "Ar 1.88 3.26 0.1\nAr 1.88 1.09 3.07\n")
+
+
+def _both_cli(cmd, args, tmp_path, capsys, rc=0):
+    """Run `cmd args` in both packages into tmp_path/ref and tmp_path/port;
+    the last stdout lines must agree."""
+    assert ref_main.main([cmd, *args, "-out", str(tmp_path / "ref")]) == rc
+    ref_line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert port_main.main([cmd, *args, "-out", str(tmp_path / "port"),
+                           "--device", "cpu"]) == rc
+    out = capsys.readouterr().out.strip().splitlines()
+    return ref_line, out
+
+
+def _same_frames(tmp_path, name, atol=1e-8):
+    f_ref, c_ref = _read_frames(tmp_path / "ref" / name)
+    f_got, c_got = _read_frames(tmp_path / "port" / name)
+    assert f_got.shape == f_ref.shape
+    np.testing.assert_allclose(f_got, f_ref, rtol=0, atol=atol)
+    e_ref = np.array([float(c.split("=")[-1]) for c in c_ref])
+    e_got = np.array([float(c.split("=")[-1]) for c in c_got])
+    np.testing.assert_allclose(e_got, e_ref, rtol=0, atol=1e-10)
+
+
+def test_confsearch_writes_the_reference_conformers(tmp_path, capsys):
+    inp = tmp_path / "ar4.xyz"
+    inp.write_text(_AR4_ANG)
+    ref_line, out = _both_cli("confsearch", [str(inp), "-ms", "2", "-bsize",
+                                             "4", "-bf", "60", "-nost"],
+                              tmp_path, capsys)
+    assert out[-2].replace("/port/", "/ref/") == ref_line
+    assert out[-1] == "rejected: 0 for bond connectivity, 0 non-finite"
+    _same_frames(tmp_path, "conformers.xyz")
+    np.testing.assert_allclose(
+        np.loadtxt(tmp_path / "port" / "EQ_energy.csv", ndmin=1),
+        np.loadtxt(tmp_path / "ref" / "EQ_energy.csv", ndmin=1), rtol=0,
+        atol=1e-10)
+
+
+@pytest.mark.parametrize("flags,profile", [
+    (["-sa", "1,2", "-sr", "3.6,4.0,3"], "scan_profile.csv"),
+    (["-scan", "bond", "1,2", "3.6,4.0", "angle", "1,2,3", "55,62",
+      "-nsample", "3", "-fo"], "energy_profile.csv"),
+], ids=["-sa -sr", "-scan -fo"])
+def test_relaxedscan_writes_the_reference_profile(flags, profile, tmp_path,
+                                                  capsys):
+    inp = tmp_path / "ar4.xyz"
+    inp.write_text(_AR4_ANG)
+    ref_line, out = _both_cli("relaxedscan", [str(inp), "-ns", "20", *flags],
+                              tmp_path, capsys)
+    assert out[-1].replace("/port/", "/ref/") == ref_line
+    _same_frames(tmp_path, "scan.xyz")
+    delim = "," if profile == "energy_profile.csv" else None
+    np.testing.assert_allclose(
+        np.loadtxt(tmp_path / "port" / profile, delimiter=delim),
+        np.loadtxt(tmp_path / "ref" / profile, delimiter=delim), rtol=0,
+        atol=1e-10)
+    assert (tmp_path / "port" / profile).read_text().splitlines()[0] == \
+        (tmp_path / "ref" / profile).read_text().splitlines()[0]
+
+
+def test_orientsearch_writes_the_reference_orientations(tmp_path, capsys):
+    """The 100-step batched relaxation amplifies rounding: the geometries
+    are held to 1e-8 Angstrom or to ten times how far the port's own
+    output moves when the input is moved by 1e-13 Angstrom (the witness),
+    if that is larger; the witness must stay within 1e-6 Angstrom."""
+    inp = tmp_path / "ar4.xyz"
+    inp.write_text(_AR4_ANG)
+    flags = ["-part", "3,4", "-nsample", "4", "-dist", "4.5"]
+    ref_line, out = _both_cli("orientsearch", [str(inp), *flags], tmp_path,
+                              capsys)
+    assert out[-1].replace("/port/", "/ref/") == ref_line
+    lines = _AR4_ANG.splitlines()
+    noise = np.random.default_rng(0).standard_normal((4, 3)) * 1e-13
+    moved = lines[:2] + [
+        "Ar " + " ".join(f"{float(v) + d:.17f}" for v, d in
+                         zip(ln.split()[1:], dn))
+        for ln, dn in zip(lines[2:], noise)]
+    (tmp_path / "moved.xyz").write_text("\n".join(moved) + "\n")
+    assert port_main.main(["orientsearch", str(tmp_path / "moved.xyz"),
+                           *flags, "-out", str(tmp_path / "witness"),
+                           "--device", "cpu"]) == 0
+    capsys.readouterr()
+    f_port, _ = _read_frames(tmp_path / "port" / "orientations.xyz")
+    f_wit, _ = _read_frames(tmp_path / "witness" / "orientations.xyz")
+    witness = np.abs(f_wit - f_port).max()
+    assert witness <= 1e-6
+    _same_frames(tmp_path, "orientations.xyz", atol=max(1e-8, 10 * witness))
+
+
+def test_run_mapper_writes_the_reference_network(tmp_path, capsys):
+    inp = tmp_path / "ar3.xyz"
+    inp.write_text("3\nAr3\nAr 0.0 0.0 0.0\nAr 3.757 0.0 0.0\n"
+                   "Ar 1.879 3.382 0.0\n")
+    (tmp_path / "map.json").write_text(json.dumps({
+        "mapper_settings": {"max_iterations": 1, "afir_gamma_kJmol": 30.0,
+                            "dist_lower_ang": 0.5, "dist_upper_ang": 9.0},
+        "step1_settings": {"NSTEP": 20},
+        "step2_settings": {"NSTEP": 8},
+        "step3_settings": {"NSTEP": 10},
+        "step4_settings": {"intrinsic_reaction_coordinates": ["0.1", "6",
+                                                              "lqa"],
+                           "NSTEP": 10}}))
+    args = [str(inp), "-cfg", str(tmp_path / "map.json"), "-maxnodes", "3"]
+    ref_line, out = _both_cli("run_mapper", args, tmp_path, capsys)
+    assert out[-2].replace("/port/", "/ref/") == ref_line
+    assert out[-1] == "skipped tasks: 0 {}"
+    want = json.loads((tmp_path / "ref" / "network.json").read_text())
+    got = json.loads((tmp_path / "port" / "network.json").read_text())
+    assert got["symbols"] == want["symbols"]
+    assert len(got["nodes"]) == len(want["nodes"])
+    assert len(got["edges"]) == len(want["edges"])
+    for g, w in zip(got["nodes"], want["nodes"]):
+        assert abs(g["energy"] - w["energy"]) <= 1e-10
+        np.testing.assert_allclose(g["coords"], w["coords"], rtol=0,
+                                   atol=1e-8)
+    # --resume reads the persisted network back
+    assert port_main.main(["run_mapper", *args, "-out",
+                           str(tmp_path / "port"), "--resume", "--device",
+                           "cpu", "--max_iter", "0"]) == 0
+    assert capsys.readouterr().out.splitlines()[-2].startswith(
+        f"network: {len(got['nodes'])} EQ nodes")
+
+
+def test_run_autots_v2_workflow_writes_the_reference_report(tmp_path,
+                                                            capsys):
+    args = _mb_inputs(tmp_path)[:-2]
+    (tmp_path / "v2.json").write_text(json.dumps({
+        "workflow": [{"step": "neb", "settings_key": "neb_settings"},
+                     {"step": "saddle"}, {"step": "freq"},
+                     {"step": "irc", "settings_key": "irc_settings"}],
+        "neb_settings": {"n_images": 10, "nsteps": 120, "k_spring": 5e-4,
+                         "climbing_start": 30, "from_path": False},
+        "irc_settings": {"nsteps": 40, "step_size": 0.05}}))
+    ref_line, out = _both_cli("run_autots",
+                              [*args, "-cfg", str(tmp_path / "v2.json")],
+                              tmp_path, capsys)
+    assert out[-1].replace("/port/", "/ref/") == ref_line
+    want = json.loads((tmp_path / "ref" / "workflow_report.json").read_text())
+    got = json.loads((tmp_path / "port" / "workflow_report.json").read_text())
+    assert [r["step"] for r in got] == [r["step"] for r in want]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k, v in w.items():
+            if isinstance(v, float):
+                assert abs(g[k] - v) <= 1e-10, k
+            else:
+                assert g[k] == v, k
+    assert got[2]["n_imaginary"] == 1
+    ref = (tmp_path / "ref" / "ts.xyz").read_text().splitlines()
+    got_ts = (tmp_path / "port" / "ts.xyz").read_text().splitlines()
+    assert got_ts[:2] == ref[:2]
+    np.testing.assert_allclose(np.array(got_ts[2].split()[1:], float),
+                               np.array(ref[2].split()[1:], float), rtol=0,
+                               atol=1e-8)
+
+
+@pytest.mark.parametrize("cmd", ["confsearch", "relaxedscan",
+                                 "orientsearch", "run_mapper"])
+def test_workflow_commands_default_to_the_card(cmd, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    inp = tmp_path / "ar4.xyz"
+    inp.write_text(_AR4_ANG)
+    extra = {"relaxedscan": ["-sa", "1,2", "-sr", "3.6,4.0,2"],
+             "orientsearch": ["-part", "3,4"]}.get(cmd, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main.main([cmd, str(inp), *extra])
+
+
+@pytest.mark.parametrize("n", [1, 8, 32])
+def test_alkane_chain_matches_the_reference_fixture(n):
+    from multioptpy_tpu.io.fixtures import alkane_chain as ref_chain
+    from multioptpy_tpu_torch.io.fixtures import alkane_chain
+
+    try:
+        want = ref_chain(n)
+    except Exception as exc:  # the reference's n = 1 (no C-C neighbor)
+        with pytest.raises(type(exc)):
+            alkane_chain(n)
+        return
+    got = alkane_chain(n)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[0].shape == (3 * n + 2, 3)
