@@ -161,6 +161,35 @@ Phases, each printing one JSON line:
      at every other f64 batch the phase's main runs launched. In this
      phase and the dynamics phase, the launches of a check or rerun on
      the card are discarded: the kernels line counts the main runs'.
+ 10. optmain_surface: the rest of optmain on SQM2 f64, each part held to
+     the CPU (multioptpy_tpu_torch/optmain_paths.py). (a) optmain ts.xyz
+     -sqm2 -opt rfo_bofill -order 1 -fc 5 -freq -temp 298.15 -press
+     101325 -cmds -pca -km -gi bond 1,11 bond 4,12 --eigh_impl pallas from
+     the full flagship's TS: converged, exactly one imaginary mode, finite
+     thermochemistry, one animation per mode above 10 cm^-1, a point-group
+     line, input.json, run_log.csv and geometry_params.csv, a K1 launch at
+     the Hessian's 108x72; SQM2's exact Hessian at the final geometry on
+     the card and on the CPU (the kernel's algorithm): one imaginary mode
+     each, frequencies within 1e-3 cm^-1 and RRHO within 1e-8 Ha; and
+     -force_freq from the reactant after 5 unconverged steps, finite. (b)
+     SQM2 orbitals at the TS and the natural reaction orbitals from the
+     IRC's reactant end, card against CPU (1e-10 Ha orbital energies,
+     1e-8 density and NRO eigenvalues). (c) -oniom 11-18 lj (the
+     dienophile as the SQM2 layer: K1 at 1x32 and the Hessian's 108x32),
+     and with -mi 3; (d) -mf seam 1 2 (the cation doublet as the second
+     state: SQM2 takes no multiplicity); (e) -of 1-10 11-18 -kp 0.1 3.0
+     1,11 (bias_param_grads.csv, one row a step), then EDEEL's seam
+     target with the diene as donor and the dienophile as acceptor (K1 at
+     1x40 and 1x32) against the CPU (1e-10 Ha, 1e-8 Ha/Bohr): 20 steps
+     each from the reactant, finite, the first 3 within 1e-8 Ha of the
+     CPU's. (f) optmain -calc emt on Cu13 and -calc tersoff on Si8, 20
+     steps each, every energy within 1e-8 Ha of the CPU's. (g) the five
+     Jobs on the card (SQM2 optimization, MD, an 8-image band and an EIP
+     search between the flagship's IRC ends, 5 steps each; AutoTS on
+     Muller-Brown), finite; then optimize's StageTimer on 10 SQM2 steps
+     with and without RunLogger's callback (the logger's host cost a
+     step). kernel_check rows follow at 1x32 and 1x40,
+     timed, and at every other f64 batch the phase's main runs launched.
 Slice A must launch the warp variant and slice B the block variant. The
 kernel_check rows time the wrapper and the kernel launch alone (padded
 input, no sort or gather) as the median of 3 groups of CUDA-event timings
@@ -1453,6 +1482,210 @@ def phase_workflows(jc, card, full_res, rows):
     return totals
 
 
+def phase_optmain_surface(jc, card, full_res, rows):
+    """The rest of optmain on the card (SQM2 f64 on the Diels-Alder system;
+    multioptpy_tpu_torch/optmain_paths.py), each part held to the CPU: (a)
+    -freq from the full flagship's TS and -force_freq from the reactant,
+    (b) orbitals, (c) ONIOM with and without -mi, (d) a two-state seam,
+    (e) fragment-averaged gradients under a bias and EDEEL's fragments,
+    (f) EMT and Tersoff, (g) the five Jobs. Appends timed kernel_check
+    rows for the new K1 shapes 1x32 and 1x40; every other f64 batch the
+    main runs launched is held to the plain version, untimed."""
+    import tempfile
+
+    from multioptpy_tpu_torch import optmain_paths as op
+    from multioptpy_tpu_torch.dynamics_paths import write_structure
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+
+    torch.set_num_threads(8)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(jc.VARIANTS, 0)
+    seen_shapes = set()
+
+    def take():
+        """A main run's launches since the last reset, added to the phase's
+        totals (a check on the card discards its own with
+        jc.reset_launches())."""
+        v = dict(jc.jacobi_eigh_cuda.variant_launches)
+        for k in totals:
+            totals[k] += v[k]
+        seen_shapes.update(jc.jacobi_eigh_cuda.shape_launches)
+        by_shape = shape_counts(jc)
+        jc.reset_launches()
+        return v, by_shape
+
+    def gate(ok, what, out):
+        if not ok:
+            raise AssertionError(f"optmain_surface {what}: {out}")
+
+    def put(out):
+        out["phase_elapsed_s"] = time.perf_counter() - t_phase
+        emit(out)
+
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    da, z = diels_alder_reactant()
+    da_xyz = write_structure(f"{work}/diels_alder.xyz", da, z)
+    ts_xyz = write_structure(f"{work}/ts.xyz", full_res.ts_coords, z)
+
+    # (a) -freq at the flagship's TS; -force_freq from the reactant
+    jc.reset_launches()
+    run = op.freq_run(ts_xyz, "cuda", f"{work}/freq", eigh_impl="pallas")
+    v, by_shape = take()
+    coords, _ = op.final_geometry(f"{work}/freq")
+    t0 = time.perf_counter()
+    check = op.freq_check(coords, z, "cuda")
+    jc.reset_launches()
+    forced = op.optmain(da_xyz, op.FORCE_FREQ_FLAGS, "cuda",
+                        f"{work}/force_freq", eigh_impl="pallas")
+    v2, by_shape2 = take()
+    forced_freqs = np.loadtxt(f"{work}/force_freq/frequencies_cm1.csv")
+    out = {"phase": "optmain_surface", "part": "a_freq",
+           "run": "optmain ts.xyz " + " ".join(op.TS_FLAGS)
+                  + " --eigh_impl pallas", **run,
+           "ts_energy_minus_flagship_ts": run["final_energy"]
+           - full_res.ts_energy,
+           "card_vs_cpu": check, "cpu_check_s": time.perf_counter() - t0,
+           "force_freq": {"run": "optmain diels_alder.xyz "
+                                 + " ".join(op.FORCE_FREQ_FLAGS),
+                          "seconds": forced["seconds"],
+                          "ms_per_step": forced["ms_per_step"],
+                          "converged": forced["converged"],
+                          "frequencies_finite": bool(np.isfinite(
+                              forced_freqs).all()),
+                          "thermochemistry": op.thermochemistry(
+                              f"{work}/force_freq"),
+                          "kernel_launches": v2,
+                          "k1_launches_by_shape": by_shape2},
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["converged"] and run["n_imaginary"] == 1
+         and run["thermo_finite"]
+         and run["animations"] == run["modes_above_10"]
+         and run["point_group_line"] is not None
+         and {"input.json", "run_log.csv", "geometry_params.csv"}
+         <= set(run["files"]), "(a) -freq at the TS", out)
+    gate(check["n_imaginary_card_cpu"] == [1, 1]
+         and check["freq_max_abs_diff_cm1"] <= 1e-3
+         and check["rrho_max_abs_diff_ha"] <= 1e-8, "(a) card vs CPU", out)
+    gate(by_shape.get("108x72x72 f64 sweeps=9", 0) > 0,
+         "(a) no K1 launch at the Hessian's 108x72", out)
+    gate(not forced["converged"] and out["force_freq"]["frequencies_finite"]
+         and np.isfinite(list(out["force_freq"]["thermochemistry"]
+                              .values())).all(), "(a) -force_freq", out)
+
+    # (b) orbitals at the TS; NROs from the IRC's reactant end to the TS
+    jc.reset_launches()
+    orb = op.orbitals_check(coords, full_res.reactant_coords.cpu().numpy(),
+                            z, "cuda")
+    v, by_shape = take()
+    out = {"phase": "optmain_surface", "part": "b_orbitals", **orb,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(orb["orbital_energy_max_abs_diff"] <= 1e-10
+         and orb["density_max_abs_diff"] <= 1e-8
+         and orb["nro_eigenvalue_max_abs_diff"] <= 1e-8, "(b) orbitals",
+         out)
+
+    # (c) ONIOM, (d) two states, (e) fragments: 20 steps each from the
+    # reactant, the first 3 again on the CPU
+    expect = {"c_oniom": ("1x32x32", "108x32x32"),
+              "c_oniom_mi": ("1x32x32", "108x32x32"),
+              "d_two_state": ("1x72x72", "108x72x72"),
+              "e_fragments": ("1x72x72",)}
+    for tag, flags in op.WRAPPER_RUNS:
+        jc.reset_launches()
+        run = op.optmain(da_xyz, (*flags, "-ns", str(op.WRAPPER_STEPS)),
+                         "cuda", f"{work}/{tag}", eigh_impl="pallas")
+        v, by_shape = take()
+        t0 = time.perf_counter()
+        gap = op.wrapper_cpu_check(da_xyz, flags, run["energies"],
+                                   f"{work}/{tag}_cpu")
+        e = run.pop("energies")
+        run.pop("stdout")
+        out = {"phase": "optmain_surface", "part": tag,
+               "run": "optmain diels_alder.xyz " + " ".join(flags)
+                      + f" -ns {op.WRAPPER_STEPS} --eigh_impl pallas",
+               **run, "first_energy": float(e[0]), "last_energy": float(e[-1]),
+               "finite": bool(np.isfinite(e).all()),
+               "cpu_rerun_s": time.perf_counter() - t0,
+               f"first{op.CMP_STEPS}_max_abs_e_diff_cpu_vs_card": gap,
+               "kernel_launches": v, "k1_launches_by_shape": by_shape,
+               "card": card}
+        if tag == "e_fragments":
+            pg = np.loadtxt(f"{work}/{tag}/bias_param_grads.csv", ndmin=2)
+            out["bias_param_grads_rows"] = len(pg)
+            # EDEEL's energy, gradient and diabatic energies on the card
+            # (a main run: its CPU half launches nothing)
+            out["edeel"] = op.edeel_check(da, z, "cuda")
+            (out["edeel"]["kernel_launches"],
+             out["edeel"]["k1_launches_by_shape"]) = take()
+        put(out)
+        gate(out["finite"] and run["steps"] > 0, f"({tag[0]}) {tag}", out)
+        gate(gap <= 1e-8, f"({tag[0]}) {tag} card vs CPU", out)
+        gate(all(any(k.startswith(s + " f64") for k in by_shape)
+                 for s in expect[tag]), f"({tag[0]}) {tag} K1 shapes", out)
+        if tag == "e_fragments":
+            gate(out["bias_param_grads_rows"] == run["steps"]
+                 and out["edeel"]["energy_abs_diff"] <= 1e-10
+                 and out["edeel"]["gradient_max_abs_diff"] <= 1e-8
+                 and any(k.startswith("1x40x40 f64") for k in
+                         out["edeel"]["k1_launches_by_shape"]),
+                 "(e) bias_param_grads.csv and EDEEL", out)
+
+    # (f) EMT on Cu13 and Tersoff on Si8, card against CPU at every step
+    jc.reset_launches()
+    toys = op.toy_runs("cuda", work)
+    v, by_shape = take()
+    out = {"phase": "optmain_surface", "part": "f_emt_tersoff", **toys,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(all(r["max_abs_e_diff_cpu_vs_card"] <= 1e-8
+             and np.isfinite(r["final_energy"]) for r in toys.values()),
+         "(f) EMT / Tersoff", out)
+
+    # (g) the five Jobs on the card
+    jc.reset_launches()
+    jobs = op.jobs_run(full_res.reactant_coords.cpu().numpy(),
+                       full_res.product_coords.cpu().numpy(), z, "cuda")
+    v, by_shape = take()
+    # the cost of RunLogger's per-step host reads, by optimize's timer
+    logging = op.logger_cost(da, z, "cuda", f"{work}/logger")
+    jc.reset_launches()
+    out = {"phase": "optmain_surface", "part": "g_jobs", "jobs": jobs,
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "logging": logging, "card": card}
+    put(out)
+    gate(all(r["finite"] for r in jobs.values()), "(g) Jobs", out)
+    gate(logging["run_logger"]["steps"] == logging["empty"]["steps"] > 0,
+         "(g) timer", out)
+    tmp.cleanup()
+
+    # the new shapes, timed at the main runs' sweeps; then every other
+    # f64 batch the phase launched
+    phase_s = time.perf_counter() - t_phase
+    gen = torch.Generator().manual_seed(8)
+    timed = {(b, d): sw for b, d, tag, sw in seen_shapes
+             if tag == "f64" and b == 1 and d in (32, 40)}
+    for (b, d), where in (((1, 32), "ONIOM model / acrolein SQM2 band"),
+                          ((1, 40), "EDEEL diene SQM2 band")):
+        rows.append(check_row(jc, gen, b, d, torch.float64, where, card,
+                              sweeps=timed.get((b, d))))
+    held = {(r["batch"], r["d"], r["sweeps"]) for r in rows}
+    for b, dd, sw in sorted({(b, dd, sw) for b, dd, tag, sw in seen_shapes
+                             if tag == "f64" and (b, dd, sw) not in held}):
+        rows.append(check_row(jc, gen, b, dd, torch.float64,
+                              f"batch of {b} in optmain_surface", card,
+                              timed=False, sweeps=sw))
+    emit({"phase": "optmain_surface_done", "seconds": phase_s,
+          "with_kernel_rows_s": time.perf_counter() - t_phase,
+          "kernel_launches": totals, "card": card})
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1474,7 +1707,8 @@ def main():
                   phase_methods(jc, card, saddle_start(full_res)),
                   phase_reaction_paths(jc, card, full_res, rows),
                   phase_dynamics_and_double_ended(jc, card, full_res),
-                  phase_workflows(jc, card, full_res, rows)]
+                  phase_workflows(jc, card, full_res, rows),
+                  phase_optmain_surface(jc, card, full_res, rows)]
 
     kernels = []
     for variant in jc.VARIANTS:

@@ -1,11 +1,13 @@
-"""Path embeddings and IRC curvature analysis (host-side numpy).
+"""Path embeddings, convergence and IRC curvature analysis (host-side
+numpy).
 
 Counterpart of `multioptpy_tpu/analysis/pes.py`: the 2-D embeddings of a
-trajectory that `mdmain -cmds/-pca` write (classical MDS of the frames'
-RMSD, PCA of their displacements), the per-point curvature properties the
-euler/rk4 IRC integrators report, the per-branch table `ircmain` writes,
-and the path bending angles. The convergence analysis arrives with
-ROADMAP Queue 1 item 15.
+trajectory that `mdmain` and `optmain` write under -cmds/-pca (classical
+MDS of the frames' RMSD, PCA of their displacements), the Koopman (DMD)
+convergence analysis of `optmain -km`, the per-point curvature
+properties the euler/rk4 IRC integrators report, the per-branch table
+`ircmain` writes, the path bending angles and the discrete curvature of
+a path.
 """
 
 from typing import NamedTuple
@@ -43,6 +45,30 @@ def pca_path_analysis(trajectory):
     coords = u[:, :2] * s[:2]
     explained = s ** 2 / (np.sum(s ** 2) + 1e-30)
     return Embedding(coords_2d=coords, explained=explained[:2])
+
+
+class KoopmanResult(NamedTuple):
+    eigenvalues: np.ndarray
+    decay_rates: np.ndarray
+    converging: bool
+
+
+def koopman_convergence_analysis(series):
+    """DMD/Koopman spectrum of a convergence time series (gradient norms,
+    energies): eigenvalues inside the unit circle mean contraction. A
+    scalar series is delay-embedded in 4 dimensions."""
+    x = np.asarray(series, dtype=np.float64)
+    if x.ndim == 1:
+        d = 4
+        if len(x) <= d + 1:
+            return KoopmanResult(np.array([]), np.array([]), True)
+        x = np.stack([x[i:len(x) - d + i] for i in range(d)], axis=1)
+    x0, x1 = x[:-1].T, x[1:].T  # (d, S-1)
+    a = x1 @ np.linalg.pinv(x0)
+    w = np.linalg.eigvals(a)
+    rates = -np.log(np.maximum(np.abs(w), 1e-12))
+    return KoopmanResult(eigenvalues=w, decay_rates=rates,
+                         converging=bool(np.all(np.abs(w) < 1.0 + 1e-9)))
 
 
 def irc_curvature_properties(grad_mw, prev_grad_mw, hessian_mw, step_size):
@@ -94,3 +120,20 @@ def path_bending_angles(mw_path):
         c = np.clip(np.dot(u, v) / denom, -1.0, 1.0)
         angles.append(float(np.degrees(np.arccos(c))))
     return np.asarray(angles)
+
+
+def irc_curvature(path):
+    """Discrete curvature |x''(s)| along a path (S, ...): central
+    differences on the arc-length-parametrized points."""
+    p = np.asarray(path).reshape(len(path), -1)
+    seg = np.linalg.norm(np.diff(p, axis=0), axis=1)
+    s = np.concatenate([[0.0], np.cumsum(seg)])
+    curv = np.zeros(len(p))
+    for i in range(1, len(p) - 1):
+        h1, h2 = s[i] - s[i - 1], s[i + 1] - s[i]
+        if h1 < 1e-12 or h2 < 1e-12:
+            continue
+        d2 = 2.0 * (h1 * p[i + 1] - (h1 + h2) * p[i] + h2 * p[i - 1]) / (
+            h1 * h2 * (h1 + h2))
+        curv[i] = np.linalg.norm(d2)
+    return curv

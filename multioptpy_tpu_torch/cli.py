@@ -4,21 +4,26 @@
 every command of the reference.
 
 Counterpart of `multioptpy_tpu/cli.py` for the flags the ported engines
-serve: the input and its charge and multiplicity, the SQM/SQM2, LJ and
-Muller-Brown backends, the optimizer (`-opt` with one method, or two for
-RMS-force switching), Hessian, convergence and trust flags, every bias
-potential flag of the reference (`-ma -kp -kpv2 -akp -ka -kav2 -kda -kdav2
--kdac -kopa -kopav2 -wp -wwp -awp -vpp -vpwp -rp -rpv2 -rpg -cp -fp -up
--nrp -lmefp -lmefpv2 -esp -espap -brp -aerp -aerpv2 -smp -metad`), the
-float64 switch, `optmain`'s `-diis`, `-delta`, constraints (`-fix`, `-pc`,
-`-gfix`) and guards (`-sc`, `-dc`, `-negeigval`), every flag of `nebmain`
-but `-spng` (item 15), `ircmain`'s `-im` and `-is`, `run_autots`'s `-cfg`,
-`-prod`, `-nimg` and `-p`, and every flag of `confsearch`,
-`relaxedscan`, `orientsearch`, `run_mapper`, `mdmain` and `ieipmain`.
-`--device` picks the card (default `cuda`) or the CPU; `--eigh_impl`
-picks the eigensolver of the RS-RFO step and of the SQM band. Any other
-flag of the reference exits with status 2 and names ROADMAP Queue 1 item
-18. Atom selections accept the "1,2,4-7" syntax.
+serve: the input and its charge and multiplicity, every backend of the
+reference (LJ, EMT, Tersoff, SQM/SQM2, Muller-Brown and the host bridges
+with their options `-xtb -dxtb -pyscf -func -bs -sub_bs -ecp -cpcm -alpb
+-grid -u -mem -core -es -os -osp`), the optimizer (`-opt` with one
+method, or two for RMS-force switching), Hessian, convergence and trust
+flags, every bias potential flag of the reference (`-ma -kp -kpv2 -akp
+-ka -kav2 -kda -kdav2 -kdac -kopa -kopav2 -wp -wwp -awp -vpp -vpwp -rp
+-rpv2 -rpg -cp -fp -up -nrp -lmefp -lmefpv2 -esp -espap -brp -aerp
+-aerpv2 -smp -metad`), the float64 switch, `optmain`'s `-diis`,
+`-delta`, constraints (`-fix`, `-pc`, `-gfix`), guards (`-sc`, `-dc`,
+`-negeigval`), calculator wrappers (`-of`, `-oniom`, `-mi`, `-mf`) and
+analyses (`-freq`, `-force_freq`, `-temp`, `-press`, `-cmds`, `-pca`,
+`-km`, `-nosymm`, `-gi`, `-pbc`), every flag of `nebmain`, `ircmain`'s
+`-im` and `-is`, `run_autots`'s `-cfg`, `-prod`, `-nimg` and `-p`, and
+every flag of `confsearch`, `relaxedscan`, `orientsearch`, `run_mapper`,
+`mdmain` and `ieipmain`. `--device` picks the card (default `cuda`) or
+the CPU; `--eigh_impl` picks the eigensolver of the RS-RFO step and of
+the SQM band. Any other flag of the reference exits with status 2 and
+names ROADMAP Queue 1 item 18. Atom selections accept the "1,2,4-7"
+syntax.
 """
 
 import argparse
@@ -52,7 +57,44 @@ def _base_parser(description):
     p.add_argument("-c", "--charge", type=int, default=0)
     p.add_argument("-m", "--multiplicity", type=int, default=1)
     p.add_argument("-calc", "--calculator", default=None,
-                   help="backend: lj (default) | sqm | sqm2 | muller_brown")
+                   help="backend: lj (default) | emt | tersoff | sqm | sqm2 "
+                        "| muller_brown | tblite | dxtb | pyscf | psi4 | "
+                        "ase | gpaw | pwscf")
+    # host-bridge backends and their options (each raises its ImportError
+    # where the library is absent)
+    p.add_argument("-bs", "--basisset", default="6-31G*")
+    p.add_argument("-func", "--functional", default="B3LYP")
+    p.add_argument("-xtb", "--xtb", default=None,
+                   help="the tblite bridge with this method (GFN2-xTB)")
+    p.add_argument("-pyscf", "--usepyscf", action="store_true",
+                   help="the PySCF bridge (-func, -bs)")
+    p.add_argument("-es", "--excited_state", type=int, default=0,
+                   help="TDA excited-state index for the PySCF bridge")
+    p.add_argument("-dxtb", "--usedxtb", default=None,
+                   help="the dxtb bridge with this method (GFN1-xTB)")
+    p.add_argument("-os", "--othersoft", default=None,
+                   help="an external code through the ASE bridge: orca, "
+                        "gaussian, nwchem, gamessus, mopac, mace_mp, uma")
+    p.add_argument("-osp", "--software_path_file",
+                   default="./software_path.conf",
+                   help="path map for -os backends")
+    p.add_argument("-cpcm", "--cpcm_solv_model", default=None,
+                   help="CPCM implicit solvent for the tblite bridge")
+    p.add_argument("-alpb", "--alpb_solv_model", default=None,
+                   help="ALPB implicit solvent for the tblite bridge")
+    p.add_argument("-sub_bs", "--sub_basisset", nargs="*", default=[],
+                   help="per-element basis overrides, e.g. I LanL2DZ "
+                        "(PySCF bridge)")
+    p.add_argument("-ecp", "--effective_core_potential", nargs="*",
+                   default=[], help="per-element ECPs (PySCF bridge)")
+    p.add_argument("-u", "--unrestrict", action="store_true",
+                   help="unrestricted SCF (PySCF bridge)")
+    p.add_argument("-grid", "--dft_grid", type=int, default=3,
+                   help="DFT grid fineness (PySCF bridge)")
+    p.add_argument("-core", "--N_THREAD", type=int, default=8,
+                   help="host-backend threads (Psi4 bridge)")
+    p.add_argument("-mem", "--SET_MEMORY", default="2GB",
+                   help="host-backend memory (Psi4 bridge)")
     p.add_argument("-sqm1", "--sqm1", action="store_true",
                    help="the on-device SQM backend")
     p.add_argument("-sqm2", "--sqm2", action="store_true",
@@ -220,6 +262,7 @@ def _load_system(args):
 
 
 def _make_calculator(args):
+    """The backend the flags name, on `--device`."""
     from multioptpy_tpu_torch.calculators.base import get_calculator
 
     charge = args.charge
@@ -228,18 +271,48 @@ def _make_calculator(args):
         charge = args.electronic_charge
     if args.spin_multiplicity is not None:
         mult = args.spin_multiplicity
+    kw = {}
     if args.calculator:
         name = args.calculator
     elif args.sqm2:
         name = "sqm2"
     elif args.sqm1:
         name = "sqm"
+    elif args.xtb:
+        name, kw = "tblite", {"method": args.xtb}
+        # solvation=(model, solvent), forwarded to tblite's Calculator.add
+        if args.cpcm_solv_model:
+            kw["solvation"] = ("cpcm", args.cpcm_solv_model)
+        elif args.alpb_solv_model:
+            kw["solvation"] = ("alpb", args.alpb_solv_model)
+    elif args.usedxtb:
+        name, kw = "dxtb", {"method": args.usedxtb}
+    elif args.othersoft:
+        name, kw = "ase", {"software_type": args.othersoft,
+                           "conf_path": args.software_path_file}
+    elif args.usepyscf:
+        name, kw = "pyscf", {"method": args.functional,
+                             "basis": args.basisset,
+                             "excited_state": args.excited_state}
+        # element -> basis name / ECP pairs
+        sb = list(args.sub_basisset)
+        if sb:
+            kw["sub_basis"] = {sb[i]: sb[i + 1]
+                               for i in range(0, len(sb) - 1, 2)}
+        ecp = list(args.effective_core_potential)
+        if ecp:
+            kw["ecp"] = {ecp[i]: ecp[i + 1]
+                         for i in range(0, len(ecp) - 1, 2)}
+        if args.unrestrict:
+            kw["unrestricted"] = True
+        kw["grid"] = args.dft_grid
     else:
         name = "lj"
-    if name not in ("lj", "sqm", "sqm2", "muller_brown"):
-        raise NotImplementedError(
-            f"calculator '{name}' arrives with ROADMAP Queue 1 item 14")
-    kw = {}
+    if name == "psi4":
+        if args.SET_MEMORY:
+            kw.setdefault("memory", args.SET_MEMORY)
+        if args.N_THREAD:
+            kw.setdefault("n_threads", args.N_THREAD)
     if args.eigh_impl and name in ("sqm", "sqm2"):
         kw["eigh_impl"] = args.eigh_impl
     return get_calculator(name, charge=charge, multiplicity=mult,
@@ -576,9 +649,134 @@ def _write(path, symbols, coords_bohr, comment=""):
 # entry points
 # --------------------------------------------------------------------------
 
+def _optmain_calculator(args, coords):
+    """The flags' backend with optmain's wrappers, in the reference's
+    order: -of (fragment-averaged gradients), -gfix, -oniom (the backend
+    as the high layer; -mi low-layer microiterations), -mf (a two-state
+    model function whose second state is the backend at [charge2
+    mult2])."""
+    import copy
+
+    calc = _make_calculator(args)
+    if args.opt_fragment:
+        from multioptpy_tpu_torch.calculators.base import FragmentGradWrapper
+        calc = FragmentGradWrapper(
+            calc, [num_parse(spec) for spec in args.opt_fragment],
+            int(coords.shape[0]))
+    if args.gradient_fix_atoms:
+        from multioptpy_tpu_torch.calculators.base import BondGradProjWrapper
+        pairs = []
+        for spec in args.gradient_fix_atoms:
+            a = num_parse(spec)
+            if len(a) != 2:
+                raise SystemExit("-gfix expects atom pairs like 1,2")
+            pairs.append((a[0], a[1]))
+        calc = BondGradProjWrapper(calc, pairs)
+    if args.oniom_flag:
+        from multioptpy_tpu_torch.calculators.base import get_calculator
+        from multioptpy_tpu_torch.calculators.oniom import (MicroiterONIOM,
+                                                            ONIOM)
+        high_atoms = num_parse(args.oniom_flag[0])
+        low = get_calculator(args.oniom_flag[1] if len(args.oniom_flag) > 1
+                             else "lj", device=args.device)
+        if args.microiter > 0:
+            calc = MicroiterONIOM(high_calc=calc, low_calc=low,
+                                  high_atoms=high_atoms,
+                                  microiter=args.microiter)
+        else:
+            calc = ONIOM(high_calc=calc, low_calc=low, high_atoms=high_atoms)
+    if args.model_function:
+        from multioptpy_tpu_torch.calculators.two_state import (
+            TwoStateModelFunction)
+        spec = list(args.model_function)
+        kind = spec[0] if spec else "seam"
+        kind = {"avoid": "avoiding"}.get(kind, kind)
+        args2 = copy.copy(args)
+        if len(spec) > 1:
+            args2.charge = int(spec[1])
+            args2.electronic_charge = None
+        if len(spec) > 2:
+            args2.multiplicity = int(spec[2])
+            args2.spin_multiplicity = None
+        calc = TwoStateModelFunction(calc, _make_calculator(args2),
+                                     kind=kind)
+    return calc
+
+
+def _tracked_params(args):
+    """-gi pairs: [("bond", [i, j]), ("angle", [i, j, k]), ...]."""
+    gi = list(args.geom_info)
+    return [(gi[i], num_parse(gi[i + 1])) for i in range(0, len(gi) - 1, 2)]
+
+
+def _frequency_analysis(args, calc, res, z, out):
+    """-freq / -force_freq: the exact Hessian at the final geometry, its
+    normal modes and RRHO thermochemistry; frequencies_cm1.csv,
+    normal_modes.txt, vibration_animation/ and thermochemistry.txt."""
+    from multioptpy_tpu_torch.analysis.vibrations import (
+        count_imaginary, normal_modes, rrho_thermochemistry,
+        write_mode_animations, write_normal_modes)
+
+    h = calc.hessian(res.coords[None], z)[0]
+    nm = normal_modes(h, res.coords, z)
+    freqs = nm.frequencies_cm1.cpu().numpy()
+    thermo = rrho_thermochemistry(h, res.coords, z,
+                                  temperature=args.temperature,
+                                  pressure=args.pressure)
+    np.savetxt(os.path.join(out, "frequencies_cm1.csv"), freqs,
+               header="frequency_cm1")
+    write_normal_modes(nm, z, os.path.join(out, "normal_modes.txt"))
+    write_mode_animations(nm, res.coords, z,
+                          os.path.join(out, "vibration_animation"))
+    with open(os.path.join(out, "thermochemistry.txt"), "w") as f:
+        for k in ("zpe", "e_thermal", "enthalpy", "entropy", "gibbs"):
+            v = getattr(thermo, k)
+            f.write(f"{k}: {v}\n")
+            print(f"  {k}: {v}")
+    print(f"  imaginary modes: {count_imaginary(freqs)}")
+
+
+def _print_point_group(coords, z):
+    """The point group of the final geometry. A degenerate input's error
+    is reported and the run goes on; any other error propagates (ROADMAP
+    Queue 3, D2: the reference skips on every exception)."""
+    from multioptpy_tpu_torch.analysis.symmetry import (SYMMETRY_ERRORS,
+                                                        analyze_symmetry)
+    try:
+        pg = analyze_symmetry(coords.cpu().numpy(), np.asarray(z))
+    except SYMMETRY_ERRORS as e:
+        print(f"symmetry analysis skipped: {e}")
+    else:
+        print(f"point group: {pg}")
+
+
+def _path_analyses(args, res, out):
+    """-cmds, -pca: 2-D embeddings of the optimization path; -km: the
+    Koopman analysis of the energy history."""
+    traj = np.asarray(res.coords_history)
+    if args.cmds:
+        from multioptpy_tpu_torch.analysis.pes import cmds_path_analysis
+        np.savetxt(os.path.join(out, "cmds_path.csv"),
+                   cmds_path_analysis(traj).coords_2d, header="cmds_2d")
+    if args.pca:
+        from multioptpy_tpu_torch.analysis.pes import pca_path_analysis
+        np.savetxt(os.path.join(out, "pca_path.csv"),
+                   pca_path_analysis(traj).coords_2d, header="pca_2d")
+    if args.koopman:
+        from multioptpy_tpu_torch.analysis.pes import (
+            koopman_convergence_analysis)
+        km = koopman_convergence_analysis(np.asarray(res.energy_history))
+        with open(os.path.join(out, "koopman.txt"), "w") as f:
+            f.write(repr(km) + "\n")
+
+
 def run_optmain(argv=None):
-    """Geometry optimization: optimized.xyz, trajectory.xyz and
-    energies.csv in `<input>_opt/`; exit status 0 when converged."""
+    """Geometry optimization. In `<input>_opt/`: optimized.xyz,
+    trajectory.xyz, energies.csv, input.json (every option), run_log.csv
+    (one row per step), geometry_params.csv (-gi), bias_param_grads.csv
+    (dE/dparam of every bias potential per step, under bias flags), and
+    the analyses asked for (-freq, -cmds, -pca, -km); the point group is
+    printed unless -nosymm. Exit status 0 when converged."""
     p = _base_parser("multioptpy_tpu_torch geometry optimization")
     p.add_argument("-diis", "--diis_variant", default=None,
                    choices=["gdiis", "gediis", "kdiis", "ediis", "adiis",
@@ -605,18 +803,43 @@ def run_optmain(argv=None):
                    action="store_true",
                    help="stop a saddle search (with -fc) whose Hessian has "
                         "no negative eigenvalue left")
+    p.add_argument("-gi", "--geom_info", nargs="*", default=[],
+                   help="track internal coordinates per step: bond i,j | "
+                        "angle i,j,k | dihedral i,j,k,l (repeatable pairs)")
+    p.add_argument("-of", "--opt_fragment", nargs="*", default=[],
+                   help="fragment-averaged gradients: one atom list per "
+                        "rigid fragment, e.g. 1-10 11-18")
+    p.add_argument("-oniom", "--oniom_flag", nargs="*", default=[],
+                   help="2-layer ONIOM: high_layer_atoms [low_calc "
+                        "(default lj)]")
+    p.add_argument("-mi", "--microiter", type=int, default=0,
+                   help="low-layer microiterations per ONIOM step")
+    p.add_argument("-mf", "--model_function", nargs="*", default=[],
+                   help="2-state model function: [kind charge2 mult2], "
+                        "kind in seam/avoiding/conical/mesx/mesx2/meci")
+    p.add_argument("-freq", "--frequency_analysis", action="store_true",
+                   help="normal modes and RRHO thermochemistry after "
+                        "convergence")
+    p.add_argument("-force_freq", "--force_frequency_analysis",
+                   action="store_true",
+                   help="the frequency analysis whether converged or not")
+    p.add_argument("-temp", "--temperature", type=float, default=298.15)
+    p.add_argument("-press", "--pressure", type=float, default=101325.0)
+    p.add_argument("-cmds", "--cmds", action="store_true",
+                   help="CMDS embedding of the optimization path")
+    p.add_argument("-pca", "--pca", action="store_true",
+                   help="PCA embedding of the optimization path")
+    p.add_argument("-km", "--koopman", action="store_true",
+                   help="Koopman convergence analysis")
+    p.add_argument("-nosymm", "--no_symmetry_analyzer", action="store_true",
+                   help="skip the point group of the final geometry")
+    p.add_argument("-pbc", "--pbc", nargs="*", default=[],
+                   help="periodic cell lengths in ang: [a b c] (parsed, "
+                        "applied to nothing, as in the reference: ROADMAP "
+                        "Queue 3, F8)")
     args = _parse(p, argv)
     symbols, coords, z = _load_system(args)
-    calc = _make_calculator(args)
-    if args.gradient_fix_atoms:
-        from multioptpy_tpu_torch.calculators.base import BondGradProjWrapper
-        pairs = []
-        for spec in args.gradient_fix_atoms:
-            a = num_parse(spec)
-            if len(a) != 2:
-                raise SystemExit("-gfix expects atom pairs like 1,2")
-            pairs.append((a[0], a[1]))
-        calc = BondGradProjWrapper(calc, pairs)
+    calc = _optmain_calculator(args, coords)
     bias = _make_bias(args, z)
     cons = _make_constraints(args)
     if cons is not None and cons.eigvec_modes:
@@ -625,15 +848,25 @@ def run_optmain(argv=None):
 
     from multioptpy_tpu_torch.drivers.optimize import optimize
     from multioptpy_tpu_torch.io.xyz import write_trajectory
+    from multioptpy_tpu_torch.logging_utils import RunLogger, snapshot_config
     from multioptpy_tpu_torch.units import ANGSTROM2BOHR, BOHR2ANGSTROM
 
     out = _outdir(args, "_opt")
+    logger = RunLogger(out, tracked_params=_tracked_params(args))
+    log_cb = logger.make_callback()
+    pgrad_rows = []
 
     def cb(it, st):
         print(f"# iter {it:4d}  E = {float(st.energy[0]):+.10f}  "
               f"max|g| = {float(st.gradient.abs().max()):.3e}  "
               f"trust = {float(st.trust_radius[0]):.4f}")
+        log_cb(it, st)
+        if bias is not None:
+            pg = bias.compute(st.coords).param_grads
+            pgrad_rows.append(torch.cat(
+                [g.reshape(-1) for g in pg]).cpu().numpy())
 
+    snapshot_config(out, cfg, extra={"input": args.input})
     res = optimize(calc, coords, z, bias_engine=bias, config=cfg,
                    constraints=cons, record_trajectory=True, callback=cb,
                    dissociation_limit=float(args.dissociate_check)
@@ -641,14 +874,27 @@ def run_optmain(argv=None):
                    shape_conditions=list(args.shape_conditions),
                    detect_negative_eigenvalues=args.detect_negative_eigenvalues,
                    device=args.device)
+    logger.flush()
     _write(os.path.join(out, "optimized.xyz"), symbols, res.coords,
            f"E = {float(res.energy):.10f}")
     write_trajectory(os.path.join(out, "trajectory.xyz"), symbols,
                      res.coords_history * BOHR2ANGSTROM)
     np.savetxt(os.path.join(out, "energies.csv"), res.energy_history,
                header="energy_hartree")
+    if pgrad_rows and pgrad_rows[0].size:
+        names = [f"{pot.name}_p{k}" for pot in bias.potentials
+                 for k in range(len(np.atleast_1d(pot.init_params())))]
+        np.savetxt(os.path.join(out, "bias_param_grads.csv"),
+                   np.vstack(pgrad_rows), header=" ".join(names))
     print(f"converged: {bool(res.converged)} after {res.n_iterations} steps; "
           f"E = {float(res.energy):.10f} Ha -> {out}/")
+
+    if ((args.frequency_analysis and bool(res.converged))
+            or args.force_frequency_analysis):
+        _frequency_analysis(args, calc, res, z, out)
+    if not args.no_symmetry_analyzer:
+        _print_point_group(res.coords, z)
+    _path_analyses(args, res, out)
     return 0 if bool(res.converged) else 1
 
 
@@ -852,7 +1098,8 @@ def _neb_parser():
     p.add_argument("-rrs", "--ratio_of_rfo_step", type=float, default=0.5,
                    help="RFO fraction of the interior move (rfo clock)")
     p.add_argument("-spng", "--save_pict", action="store_true",
-                   help="energy-profile plot (ROADMAP Queue 1 item 15)")
+                   help="energy_profile.png of the final band (needs "
+                        "matplotlib)")
     p.add_argument("-idpp", "--use_idpp", action="store_true")
     p.add_argument("-cfbenm", "--use_cfb_enm", action="store_true",
                    help="flat-bottom elastic-network preprocessing of the "
@@ -1022,16 +1269,13 @@ def _cfb_enm_relax(args, path0, z):
 def neb_job(argv=None):
     """nebmain's flags as a band run: (args, symbols, the initial path
     (I,N,3) Bohr on the flags' device, z, NEBConfig, and the keywords of
-    `aneb` under -aneb, else None). Exits 2 on -spng; under -cfbenm the
-    interior images are relaxed first."""
+    `aneb` under -aneb, else None). Under -cfbenm the interior images are
+    relaxed first."""
     from multioptpy_tpu_torch.device import resolve_device
     from multioptpy_tpu_torch.periodic import symbols_to_z
 
     p = _neb_parser()
     args = _parse(p, argv)
-    if args.save_pict:
-        p.exit(2, f"{p.prog}: not ported: -spng (the plot writer arrives "
-                  "with ROADMAP Queue 1 item 15)\n")
     symbols, path0 = _neb_initial_path(args, resolve_device(args.device))
     z = np.asarray(symbols_to_z(symbols))
     if args.use_cfb_enm:
@@ -1107,6 +1351,11 @@ def run_nebmain(argv=None):
         # the adaptive band runs without the per-iteration callback
         np.savetxt(os.path.join(out, "energy_plot.csv"), e_np,
                    header="energy_hartree")
+    if args.save_pict:
+        # matplotlib is optional: without it this raises its ImportError
+        from multioptpy_tpu_torch.analysis.visualization import (
+            plot_energy_profile)
+        plot_energy_profile(e_np, os.path.join(out, "energy_profile.png"))
     print(f"converged: {bool(res.converged)}; TS guess = image "
           f"{res.ts_index}; E = {float(e_np[res.ts_index]):.8f}")
     return 0

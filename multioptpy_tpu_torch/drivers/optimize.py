@@ -30,6 +30,7 @@ Convergence semantics are the reference's (Gaussian-style 4 criteria with
 force-coupled displacement thresholds, masked RMS).
 """
 
+import contextlib
 import dataclasses
 import os
 from typing import NamedTuple, Optional
@@ -765,6 +766,13 @@ def _stop_requested(state, config, stop_file, dissociation_limit,
     return False
 
 
+def _stages(timer):
+    """timer.stage, or a no-op context without a timer."""
+    if timer is not None:
+        return timer.stage
+    return lambda name, block=None: contextlib.nullcontext()
+
+
 def _save(checkpoint_path, state, it, config):
     from multioptpy_tpu_torch.checkpoint import save_checkpoint
     save_checkpoint(checkpoint_path, state,
@@ -775,7 +783,7 @@ def _optimize_chunked(step, state, config, record_trajectory=False,
                       callback=None, stop_file="end.txt",
                       dissociation_limit=None, shape_conditions=None,
                       detect_negative_eigenvalues=False,
-                      checkpoint_path=None, checkpoint_every=0):
+                      checkpoint_path=None, checkpoint_every=0, timer=None):
     """`config.scan_chunk` steps between the host's checks, with the
     semantics of the reference's chunked driver (one `lax.scan` per chunk
     there, one launch sequence per step here):
@@ -795,47 +803,50 @@ def _optimize_chunked(step, state, config, record_trajectory=False,
     rows repeat the state, as the reference's do.
     """
     chunk = int(config.scan_chunk)
+    stage = _stages(timer)
     energies = [float(state.energy[0])]
     traj = [state.coords[0].cpu().numpy()] if record_trajectory else None
     it = 0
     n_chunks = -(-config.nsteps // chunk)
     for ci in range(n_chunks):
-        stopped = torch.zeros_like(state.converged)
-        e_h, conv_h, c_h = [], [], []
-        for _ in range(min(chunk, config.nsteps - ci * chunk)):
-            if bool((state.converged | stopped).all()):
-                break
-            new = step(state)
-            active = (~stopped) & (state.iteration < config.nsteps)
-            bad = active & (~torch.isfinite(new.energy)
-                            | (new.energy.abs() > 1e8))
-            state = _select((~active) | bad, state, new)
-            stopped = stopped | bad
-            e_h.append(state.energy[0])
-            conv_h.append(state.converged[0])
-            if record_trajectory:
-                c_h.append(state.coords[0])
-        while len(e_h) < chunk:
-            e_h.append(state.energy[0])
-            conv_h.append(state.converged[0])
-            if record_trajectory:
-                c_h.append(state.coords[0])
-        # one transfer for everything the host inspects
-        e_np = torch.stack(e_h).cpu().numpy()
-        conv_np = torch.stack(conv_h).cpu().numpy()
+        with stage("step"):
+            stopped = torch.zeros_like(state.converged)
+            e_h, conv_h, c_h = [], [], []
+            for _ in range(min(chunk, config.nsteps - ci * chunk)):
+                if bool((state.converged | stopped).all()):
+                    break
+                new = step(state)
+                active = (~stopped) & (state.iteration < config.nsteps)
+                bad = active & (~torch.isfinite(new.energy)
+                                | (new.energy.abs() > 1e8))
+                state = _select((~active) | bad, state, new)
+                stopped = stopped | bad
+                e_h.append(state.energy[0])
+                conv_h.append(state.converged[0])
+                if record_trajectory:
+                    c_h.append(state.coords[0])
+            while len(e_h) < chunk:
+                e_h.append(state.energy[0])
+                conv_h.append(state.converged[0])
+                if record_trajectory:
+                    c_h.append(state.coords[0])
+            # one transfer for everything the host inspects
+            e_np = torch.stack(e_h).cpu().numpy()
+            conv_np = torch.stack(conv_h).cpu().numpy()
         take = min(chunk, config.nsteps - ci * chunk)
         if conv_np.any():
             take = min(take, int(np.argmax(conv_np)) + 1)
         it = ci * chunk + take
         energies.extend(float(e) for e in e_np[:take])
-        if record_trajectory:
-            traj.extend(c.cpu().numpy() for c in c_h[:take])
-        if callback is not None:
-            callback(it, state)
-        if (checkpoint_path and checkpoint_every
-                and (it // checkpoint_every)
-                > (max(it - chunk, 0) // checkpoint_every)):
-            _save(checkpoint_path, state, it, config)
+        with stage("host"):
+            if record_trajectory:
+                traj.extend(c.cpu().numpy() for c in c_h[:take])
+            if callback is not None:
+                callback(it, state)
+            if (checkpoint_path and checkpoint_every
+                    and (it // checkpoint_every)
+                    > (max(it - chunk, 0) // checkpoint_every)):
+                _save(checkpoint_path, state, it, config)
         if bool(stopped[0]):
             print(f"# runaway detected (|E| > 1e8 or non-finite) in "
                   f"method={config.method} saddle_order="
@@ -859,7 +870,7 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
              constraints=None, stop_file="end.txt", dissociation_limit=None,
              shape_conditions=None, detect_negative_eigenvalues=False,
              checkpoint_path=None, checkpoint_every=0, resume_from=None,
-             device=None):
+             timer=None, device=None):
     """Host-driven optimization loop on one structure (N,3) with early exit.
 
     `device` (None means the CUDA card) must be where `calc` lives.
@@ -872,8 +883,11 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
     `fc_count > 0`) whose projected Hessian lost its negative eigenvalues.
     `checkpoint_path` + `checkpoint_every` write resumable snapshots
     (`checkpoint.py`); `resume_from` restarts from one. `callback(it,
-    state)` sees the batched state (batch of one). With `config.scan_chunk
-    > 1` the loop runs `_optimize_chunked`."""
+    state)` sees the batched state (batch of one). `timer` (a
+    `logging_utils.StageTimer`) records the wall clock of the stages
+    "step" (the step, up to its energy on the host) and "host" (the
+    trajectory, callback and checkpoint). With `config.scan_chunk > 1` the
+    loop runs `_optimize_chunked`."""
     dev = calc_device(calc, device, "the optimization")
     x = on_device(coords, dev)[None]
     constraint_targets = None
@@ -904,21 +918,25 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
         return _optimize_chunked(
             step, state, config, record_trajectory=record_trajectory,
             callback=callback, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, **checks)
+            checkpoint_every=checkpoint_every, timer=timer, **checks)
 
+    stage = _stages(timer)
     energies = [float(state.energy[0])]
     traj = [state.coords[0].cpu().numpy()] if record_trajectory else None
     it = 0
     for it in range(1, config.nsteps + 1):
-        state = step(state)
-        e_now = float(state.energy[0])      # waits for the step
+        with stage("step"):
+            state = step(state)
+            e_now = float(state.energy[0])      # waits for the step
         energies.append(e_now)
-        if record_trajectory:
-            traj.append(state.coords[0].cpu().numpy())
-        if callback is not None:
-            callback(it, state)
-        if checkpoint_path and checkpoint_every and it % checkpoint_every == 0:
-            _save(checkpoint_path, state, it, config)
+        with stage("host"):
+            if record_trajectory:
+                traj.append(state.coords[0].cpu().numpy())
+            if callback is not None:
+                callback(it, state)
+            if (checkpoint_path and checkpoint_every
+                    and it % checkpoint_every == 0):
+                _save(checkpoint_path, state, it, config)
         if bool(state.converged[0]):
             break
         if _stop_requested(state, config, **checks):

@@ -13,6 +13,8 @@ Atom indices in configs are 1-based (reference CLI convention) and
 converted to 0-based arrays here.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -99,9 +101,20 @@ class BiasPotential:
         raise NotImplementedError
 
 
+class BiasResult(NamedTuple):
+    energy: torch.Tensor         # (B,) bias energy (Hartree)
+    gradient: torch.Tensor       # (B, N, 3) bias gradient (Hartree/Bohr)
+    param_grads: tuple           # dE/dparams per potential
+
+
 class BiasEngine:
     """Sums a static list of potentials into one differentiable function
-    of a batch (B, N, 3)."""
+    of a batch (B, N, 3).
+
+        e, g = engine.energy_and_gradient(coords)
+        hess = engine.hessian(coords)                   # (B, 3N, 3N)
+        res = engine.compute(coords)                    # + dE/dparams
+    """
 
     def __init__(self, potentials):
         self.potentials = list(potentials)
@@ -135,6 +148,22 @@ class BiasEngine:
             e = self.total_energy(x)
             (g,) = torch.autograd.grad(e.sum(), x)
         return e.detach(), g
+
+    def compute(self, coords):
+        """Energy, gradient and each potential's dE/dparams (the
+        parameters of `init_params()`), by autograd; the parameter
+        gradients are those of the batch's summed energy (of the one
+        structure for a batch of one)."""
+        with torch.enable_grad():
+            x = coords.detach().requires_grad_(True)
+            prms = tuple(p.detach().requires_grad_(True)
+                         for p in self.params(x.dtype, x.device))
+            e = self.total_energy(x, prms)
+            grads = torch.autograd.grad(e.sum(), (x,) + prms,
+                                        allow_unused=True)
+        pgrads = tuple(torch.zeros_like(p) if g is None else g
+                       for p, g in zip(prms, grads[1:]))
+        return BiasResult(e.detach(), grads[0], pgrads)
 
     def hessian(self, coords):
         """(B, N, 3) -> (B, 3N, 3N)."""

@@ -274,12 +274,40 @@ def test_neb_job_is_what_nebmain_runs(tmp_path):
 
 
 def test_nebmain_flags_outside_the_slice_exit_2(tmp_path, capsys):
+    """The reference's base-parser flags that nebmain does not act on yet
+    (item 18) exit with status 2; -spng is ported (its own test)."""
     a, b = _ar5_pair(tmp_path)
-    for flag, item in (("-spng", "item 15"),):
+    for flags, item in ((["-fix", "1"], "item 18"),):
         with pytest.raises(SystemExit) as exc:
-            port_main.main(["nebmain", a, "-i2", b, flag, "--device", "cpu"])
+            port_main.main(["nebmain", a, "-i2", b, *flags, "--device",
+                            "cpu"])
         assert exc.value.code == 2
         assert item in capsys.readouterr().err
+
+
+def test_nebmain_spng_plots_or_raises_without_matplotlib(tmp_path, capsys,
+                                                         monkeypatch):
+    """-spng writes energy_profile.png beside energy_plot.csv; where
+    matplotlib is absent (the card's machine) the plot raises the
+    ImportError that names it, as the reference's does, after the band's
+    files are written."""
+    import sys
+
+    a, b = _ar5_pair(tmp_path)
+    args = [a, "-i2", b, "-nimg", "4", "-ns", "2", "-calc", "lj", "-spng",
+            "--device", "cpu"]
+    pytest.importorskip("matplotlib")
+    assert port_main.main(["nebmain", *args, "-out",
+                           str(tmp_path / "port")]) == 0
+    png = (tmp_path / "port" / "energy_profile.png").read_bytes()
+    assert png[:8] == b"\x89PNG\r\n\x1a\n"
+    for mod in [m for m in sys.modules if m.startswith("matplotlib")]:
+        monkeypatch.delitem(sys.modules, mod)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="matplotlib"):
+        port_main.main(["nebmain", *args, "-out", str(tmp_path / "bare")])
+    assert (tmp_path / "bare" / "neb_path.xyz").exists()
+    capsys.readouterr()
 
 
 @pytest.mark.parametrize("method", ["lqa", "euler", "rk4", "dvv", "hpc"])
@@ -569,3 +597,223 @@ def test_alkane_chain_matches_the_reference_fixture(n):
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
     assert got[0].shape == (3 * n + 2, 3)
+
+
+# ---- optmain's outputs and analyses -------------------------------------
+
+_WATER_DISTORTED = ("3\nwater\nO 0.0 0.0 0.1173\nH 0.0 0.93 -0.52\n"
+                    "H 0.0 -0.70 -0.40\n")
+_SLICE_FLAGS = ["-sqm2", "-c", "1", "-m", "2", "-freq", "-gi", "bond", "1,2",
+                "angle", "2,1,3", "-cmds", "-pca", "-km", "-kp", "0.5",
+                "1.0", "1,2"]
+
+
+def _optmain_slice(tmp):
+    """The water cation (F1-free) through both packages' optmain with
+    -freq, -gi, -cmds, -pca, -km and a -kp bias: (ref dir, port dir, ref
+    stdout, port stdout)."""
+    import contextlib
+    import io
+
+    inp = tmp / "w.xyz"
+    inp.write_text(_WATER_DISTORTED)
+    outs = []
+    for main, tag, extra in ((ref_main.main, "ref", []),
+                             (port_main.main, "port", ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert main(["optmain", str(inp), *_SLICE_FLAGS, "-out",
+                         str(tmp / tag), *extra]) == 0
+        outs.append(buf.getvalue())
+    return tmp / "ref", tmp / "port", outs[0], outs[1]
+
+
+def _table(path, **kw):
+    return np.loadtxt(path, ndmin=2, **kw)
+
+
+def test_optmain_writes_every_reference_file(tmp_path):
+    """One run of each package (the reference's -freq costs half a minute
+    of compiles, so one test holds all of it).
+
+    The files: the same names and headers; energies, gradients and steps
+    to 1e-10 relative (run_log.csv, energies.csv, bias_param_grads.csv,
+    geometry_params.csv, thermochemistry.txt), the input record equal but
+    for the input's path.
+
+    The analyses: -freq's frequencies above 10 cm^-1 to 1e-6 cm^-1 (from
+    Hessians of geometries 1e-12 Bohr apart), normal_modes.txt and the
+    animations after flipping each port mode to the reference's sign
+    (half a unit of the last printed digit); -cmds/-pca up to a sign per
+    axis (1e-8); -km's spectrum (1e-6: the delay embedding of an energy
+    series that converges is ill-conditioned) and verdict; the printed
+    thermochemistry, imaginary-mode count and point group."""
+    ref, port, out_ref, out_port = _optmain_slice(tmp_path)
+    names = lambda d: sorted(p.relative_to(d).as_posix()  # noqa: E731
+                             for p in d.rglob("*"))
+    assert names(port) == names(ref)
+    for name in ("run_log.csv", "energies.csv", "bias_param_grads.csv",
+                 "geometry_params.csv", "frequencies_cm1.csv",
+                 "cmds_path.csv", "pca_path.csv"):
+        assert (port / name).read_text().splitlines()[0] == \
+            (ref / name).read_text().splitlines()[0], name
+    for name, kw in (("run_log.csv", dict(delimiter=",", skiprows=1)),
+                     ("energies.csv", {}), ("bias_param_grads.csv", {}),
+                     ("geometry_params.csv", dict(delimiter=","))):
+        a, b = _table(ref / name, **kw), _table(port / name, **kw)
+        assert a.shape == b.shape and len(a) >= 5, name
+        np.testing.assert_allclose(b, a, rtol=1e-10, atol=1e-13,
+                                   err_msg=name)
+    got = json.loads((port / "input.json").read_text())
+    want = json.loads((ref / "input.json").read_text())
+    assert got.pop("input").endswith("w.xyz")
+    want.pop("input")
+    assert got == want
+    for la, lb in zip((ref / "thermochemistry.txt").read_text().split("\n"),
+                      (port / "thermochemistry.txt").read_text().split("\n")):
+        if la:
+            ka, va = la.split(": ")
+            kb, vb = lb.split(": ")
+            tol = 1e-12 if ka == "entropy" else 1e-10
+            assert kb == ka and abs(float(vb) - float(va)) <= tol, ka
+
+    fa = np.loadtxt(ref / "frequencies_cm1.csv")
+    fb = np.loadtxt(port / "frequencies_cm1.csv")
+    vib = np.abs(fa) > 10.0
+    np.testing.assert_array_equal(np.abs(fb) > 10.0, vib)
+    np.testing.assert_allclose(fb[vib], fa[vib], rtol=0, atol=1e-6)
+
+    def modes(text):
+        return [ln.split() for ln in text.splitlines()]
+
+    a = modes((ref / "normal_modes.txt").read_text())
+    b = modes((port / "normal_modes.txt").read_text())
+    assert [r[:1] for r in a] == [r[:1] for r in b]
+    disp_a = np.array([[float(v) for v in r[1:]] for r in a
+                       if r and len(r[0]) <= 2 and r[0].isalpha()])
+    disp_b = np.array([[float(v) for v in r[1:]] for r in b
+                       if r and len(r[0]) <= 2 and r[0].isalpha()])
+    sign = np.sign(np.sum(disp_a * disp_b, axis=0))
+    sign = np.repeat(np.sign(sign.reshape(-1, 3).sum(1)), 3)
+    np.testing.assert_allclose(disp_b * sign, disp_a, rtol=0, atol=5.01e-5)
+    anims = sorted((ref / "vibration_animation").iterdir())
+    assert [p.name for p in anims] == sorted(
+        p.name for p in (port / "vibration_animation").iterdir())
+    for pa in anims:
+        la = pa.read_text().splitlines()
+        lb = (port / "vibration_animation" / pa.name).read_text() \
+            .splitlines()
+        assert [x for x in la if x.startswith("Mode")] == \
+            [x for x in lb if x.startswith("Mode")]
+        xa = np.array([[float(v) for v in x.split()[1:]] for x in la
+                       if len(x.split()) == 4])
+        xb = np.array([[float(v) for v in x.split()[1:]] for x in lb
+                       if len(x.split()) == 4])
+        eq = np.abs(xb - xa).max() <= 5.01e-7
+        # an opposite sign mirrors each frame through the geometry
+        assert eq or np.abs(xb - xa).max() < 0.5, pa.name
+    for name in ("cmds_path.csv", "pca_path.csv"):
+        a, b = np.loadtxt(ref / name), np.loadtxt(port / name)
+        s = np.sign(np.sum(a * b, axis=0))
+        np.testing.assert_allclose(b * s, a, rtol=0, atol=1e-8, err_msg=name)
+
+    def koopman(text):
+        import re
+        nums = re.findall(r"[-+]?\d+\.\d*(?:e[-+]?\d+)?[-+]\d+\.\d*"
+                          r"(?:e[-+]?\d+)?j|[-+]?\d+\.\d*(?:e[-+]?\d+)?",
+                          text.split("decay_rates")[0])
+        return (np.sort_complex(np.array([complex(n) for n in nums])),
+                "converging=True" in text)
+
+    ka, ca = koopman((ref / "koopman.txt").read_text())
+    kb, cb = koopman((port / "koopman.txt").read_text())
+    assert ca == cb and len(ka) == len(kb) == 4
+    np.testing.assert_allclose(kb, ka, rtol=0, atol=1e-6)
+
+    def lines(out, *keys):
+        return [ln for ln in out.splitlines() if ln.strip().startswith(keys)]
+
+    assert lines(out_port, "point group", "imaginary modes") == \
+        lines(out_ref, "point group", "imaginary modes")
+    assert "point group: SymmetryResult(point_group='C2v'" in out_port
+    for la, lb in zip(lines(out_ref, "zpe", "enthalpy", "gibbs"),
+                      lines(out_port, "zpe", "enthalpy", "gibbs")):
+        assert abs(float(la.split()[-1]) - float(lb.split()[-1])) <= 1e-10
+
+
+_CU4 = ("4\nCu4\nCu 0.0 0.0 0.0\nCu 2.6 0.1 0.0\nCu 1.2 2.3 0.1\n"
+        "Cu 1.3 0.8 2.2\n")
+_WRAPPER_FLAGS = [
+    ["-calc", "emt", "-oniom", "1,2", "lj"],
+    ["-calc", "emt", "-oniom", "1,2", "lj", "-mi", "2"],
+    ["-calc", "emt", "-mf", "seam", "1", "2"],
+    ["-calc", "emt", "-of", "1,2", "3,4", "-kp", "0.1", "2.5", "1,3"],
+]
+
+
+@pytest.mark.parametrize("flags", _WRAPPER_FLAGS,
+                         ids=[" ".join(f) for f in _WRAPPER_FLAGS])
+def test_optmain_calculator_wrappers_match_the_reference(flags, tmp_path,
+                                                         capsys):
+    """-oniom (EMT high layer, LJ low; with -mi microiterations), -mf (a
+    seam between two states of one backend) and -of (fragment-averaged
+    gradients, with a bias: bias_param_grads.csv) on a Cu4 cluster, 5
+    RS-RFO steps from a Lindh model Hessian: the same geometry (1e-8 Angstrom), energies (1e-10 relative)
+    and bias parameter gradients."""
+    inp = tmp_path / "cu4.xyz"
+    inp.write_text(_CU4)
+    # a model Hessian start: a composite's exact Hessian is seminumerical
+    # in the port (ROADMAP Queue 3, D3)
+    args = [str(inp), *flags, "-ns", "5", "-nosymm", "-mh", "lindh"]
+    rc_ref = ref_main.main(["optmain", *args, "-out", str(tmp_path / "ref")])
+    rc = port_main.main(["optmain", *args, "-out", str(tmp_path / "port"),
+                         "--device", "cpu"])
+    capsys.readouterr()
+    assert rc == rc_ref
+    for name in ("energies.csv", "bias_param_grads.csv"):
+        if (tmp_path / "ref" / name).exists():
+            np.testing.assert_allclose(
+                np.loadtxt(tmp_path / "port" / name),
+                np.loadtxt(tmp_path / "ref" / name), rtol=1e-10, atol=1e-14)
+    got, want = (np.array([ln.split()[1:] for ln in
+                           (tmp_path / d / "optimized.xyz").read_text()
+                           .splitlines()[2:]], float)
+                 for d in ("port", "ref"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-8)
+    assert ("-kp" in flags) == (tmp_path / "port"
+                                / "bias_param_grads.csv").exists()
+
+
+def test_d2_symmetry_errors_are_narrowed(tmp_path, capsys, monkeypatch):
+    """D2: a degenerate input's error (ValueError, numpy's LinAlgError) is
+    reported and the run goes on; any other error of the point-group
+    analysis propagates, where the reference skips every exception."""
+    from multioptpy_tpu_torch.analysis import symmetry
+
+    inp = tmp_path / "ar4.xyz"
+    inp.write_text(_AR4)
+    args = ["optmain", str(inp), "-ns", "1", "--device", "cpu"]
+    for exc in (ValueError("coincident atoms"),
+                np.linalg.LinAlgError("eigh")):
+        monkeypatch.setattr(symmetry, "analyze_symmetry",
+                            lambda c, z, e=exc: (_ for _ in ()).throw(e))
+        port_main.main(args + ["-out", str(tmp_path / "a")])
+        assert "symmetry analysis skipped: " in capsys.readouterr().out
+    monkeypatch.setattr(symmetry, "analyze_symmetry",
+                        lambda c, z: (_ for _ in ()).throw(
+                            RuntimeError("CUDA error: an illegal access")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_main.main(args + ["-out", str(tmp_path / "b")])
+
+
+def test_f8_optmain_parses_pbc_and_applies_none(tmp_path, capsys):
+    """F8: the reference's optmain accepts -pbc a b c and applies it to
+    nothing; so does the port (the same result with and without it)."""
+    inp = tmp_path / "ar4.xyz"
+    inp.write_text(_AR4)
+    for tag, extra in (("plain", []), ("pbc", ["-pbc", "5", "5", "5"])):
+        port_main.main(["optmain", str(inp), "-ns", "3", "-nosymm", *extra,
+                        "-out", str(tmp_path / tag), "--device", "cpu"])
+    capsys.readouterr()
+    assert (tmp_path / "pbc" / "optimized.xyz").read_text() == \
+        (tmp_path / "plain" / "optimized.xyz").read_text()
