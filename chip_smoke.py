@@ -190,6 +190,27 @@ Phases, each printing one JSON line:
      with and without RunLogger's callback (the logger's host cost a
      step). kernel_check rows follow at 1x32 and 1x40,
      timed, and at every other f64 batch the phase's main runs launched.
+ 11. cli_surface: the command-line flags that act, at full width, each
+     part held to the CPU (multioptpy_tpu_torch/cli_paths.py). (a)
+     optmain ts.xyz -calc sqm2 -order 1 -o rfo_bofill -ns 5 -irc 0.1 10
+     lqa --eigh_impl pallas from the full flagship's TS: the chain takes
+     the IRC (not the meta-IRC), one imaginary mode at the optimized
+     geometry on the card and on the CPU, the IRC's point count printed,
+     its first 3 energies of each branch within 1e-10 Ha of the same IRC
+     on the CPU (branches matched: the imaginary mode's sign is each
+     eigensolver's), K1 at 1x54, 108x72, 2x72 and 216x72. (b) run_autots
+     ts.xyz -calc sqm2 -cfg v1.json with skip_to_step4 (saddle refinement,
+     a 10-step LQA IRC, 20 steps at each end): one imaginary mode, the
+     refined TS within 1e-9 Ha of the flagship's and of the CPU's energy
+     there, ts.xyz, irc_end_1.xyz and irc_end_2.xyz written. (c) optmain
+     diels_alder.xyz -calc sqm -srb -ns 10 --eigh_impl pallas: a non-zero
+     SRB term at the reactant, the run's first energy SQM's without it
+     plus the term (1e-10 Ha), its first 3 energies within 1e-10 Ha of the
+     CPU's. (d) relaxedscan -sqm2 -scan bond 1,11 3.2,2.6 -nsample 3 -ns
+     5 under -diis gdiis -d 0.5 and under -opt sd -d 0.5 --eigh_impl
+     pallas: each point's energy within 1e-8 Ha of the same scan on the
+     CPU. Timed kernel_check rows follow for every f64 batch the phase's
+     main runs launched that no row holds yet.
 Slice A must launch the warp variant and slice B the block variant. The
 kernel_check rows time the wrapper and the kernel launch alone (padded
 input, no sort or gather) as the median of 3 groups of CUDA-event timings
@@ -1686,6 +1707,177 @@ def phase_optmain_surface(jc, card, full_res, rows):
     return totals
 
 
+def phase_cli_surface(jc, card, full_res, rows):
+    """The command-line flags that act, at full width on the Diels-Alder
+    system (multioptpy_tpu_torch/cli_paths.py), each part held to the CPU:
+    (a) optmain -irc from the full flagship's TS, (b) run_autots with a v1
+    config that sets skip_to_step4 from that TS, (c) optmain -calc sqm
+    -srb from the reactant, (d) relaxedscan under -diis gdiis -d 0.5 and
+    under -opt sd -d 0.5. Appends timed kernel_check rows for every f64
+    batch the phase's main runs launched that no row holds yet."""
+    import tempfile
+
+    from multioptpy_tpu_torch import cli_paths as cp
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.dynamics_paths import write_structure
+    from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu_torch.io.xyz import read_xyz
+    from multioptpy_tpu_torch.optmain_paths import optmain
+    from multioptpy_tpu_torch.units import ANGSTROM2BOHR
+    from multioptpy_tpu_torch.workflow_paths import relaxedscan_run
+
+    torch.set_num_threads(8)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(jc.VARIANTS, 0)
+    seen_shapes = set()
+
+    def take():
+        """A main run's launches since the last reset, added to the phase's
+        totals (a check on the card discards its own with
+        jc.reset_launches())."""
+        v = dict(jc.jacobi_eigh_cuda.variant_launches)
+        for k in totals:
+            totals[k] += v[k]
+        seen_shapes.update(jc.jacobi_eigh_cuda.shape_launches)
+        by_shape = shape_counts(jc)
+        jc.reset_launches()
+        return v, by_shape
+
+    def gate(ok, what, out):
+        if not ok:
+            raise AssertionError(f"cli_surface {what}: {out}")
+
+    def put(out):
+        out["phase_elapsed_s"] = time.perf_counter() - t_phase
+        emit(out)
+
+    tmp = tempfile.TemporaryDirectory()
+    work = tmp.name
+    da, z = diels_alder_reactant()
+    da_xyz = write_structure(f"{work}/diels_alder.xyz", da, z)
+    ts_xyz = write_structure(f"{work}/ts.xyz", full_res.ts_coords, z)
+
+    # (a) optmain -irc from the flagship's TS
+    jc.reset_launches()
+    run = cp.irc_chain_run(ts_xyz, "cuda", f"{work}/irc")
+    v, by_shape = take()
+    check = cp.irc_chain_cpu_check(run, z, "cuda")
+    jc.reset_launches()
+    gap_key = f"first{cp.IRC_CMP}_max_abs_e_diff_cpu_vs_card"
+    out = {"phase": "cli_surface", "part": "a_optmain_irc",
+           "run": "optmain ts.xyz " + " ".join(cp.IRC_FLAGS)
+                  + " --eigh_impl pallas",
+           **{k: run[k] for k in ("seconds", "steps", "converged",
+                                  "took_irc", "irc_points")},
+           "irc_first3": {"forward": run["forward"][:3].tolist(),
+                          "backward": run["backward"][:3].tolist()},
+           "finite": bool(np.isfinite(run["forward"]).all()
+                          and np.isfinite(run["backward"]).all()),
+           "card_vs_cpu": check, "kernel_launches": v,
+           "k1_launches_by_shape": by_shape, "card": card}
+    put(out)
+    gate(run["took_irc"] and check["n_imaginary_card_cpu"] == [1, 1]
+         and out["finite"]
+         and run["irc_points"] == len(run["forward"]) * 2 > 0,
+         "(a) the chain took the IRC from one imaginary mode", out)
+    gate(check[gap_key] <= 1e-10, "(a) card vs CPU", out)
+    gate(all(any(k.startswith(s + " f64") for k in by_shape)
+             for s in ("1x54x54", "108x72x72", "2x72x72", "216x72x72")),
+         "(a) K1 shapes", out)
+
+    # (b) run_autots -cfg v1.json with skip_to_step4 from the same TS
+    jc.reset_launches()
+    run = cp.skip_to_step4_run(ts_xyz, "cuda", f"{work}/autots")
+    v, by_shape = take()
+    e_cpu = float(SQM2(device="cpu").energy(
+        torch.as_tensor(run["ts"])[None], z)[0])
+    out = {"phase": "cli_surface", "part": "b_skip_to_step4",
+           "run": "run_autots ts.xyz -calc sqm2 -cfg v1.json",
+           "config": cp.SKIP_TO_STEP4,
+           **{k: run[k] for k in ("seconds", "ts_energy", "n_imaginary",
+                                  "files", "last_line")},
+           "ts_energy_minus_flagship_ts": run["ts_energy"]
+           - full_res.ts_energy,
+           # ts.xyz's comment carries 10 decimals
+           "cpu_energy_at_ts_minus_card": e_cpu - run["ts_energy"],
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(run["n_imaginary"] == 1
+         and abs(out["ts_energy_minus_flagship_ts"]) <= 1e-9
+         and abs(out["cpu_energy_at_ts_minus_card"]) <= 1e-9
+         and run["files"] == ["irc_end_1.xyz", "irc_end_2.xyz", "ts.xyz"],
+         "(b) skip_to_step4", out)
+
+    # (c) optmain -calc sqm -srb from the reactant
+    jc.reset_launches()
+    run = optmain(da_xyz, (*cp.SRB_FLAGS, "-ns", str(cp.SRB_STEPS)), "cuda",
+                  f"{work}/srb", eigh_impl="pallas")
+    v, by_shape = take()
+    term = cp.srb_term(read_xyz(da_xyz)[1] * ANGSTROM2BOHR, z, "cuda")
+    jc.reset_launches()
+    cpu = optmain(da_xyz, (*cp.SRB_FLAGS, "-ns", str(cp.SRB_CMP - 1)), "cpu",
+                  f"{work}/srb_cpu")
+    e = run.pop("energies")
+    run.pop("stdout")
+    n = min(cp.SRB_CMP, len(e), len(cpu["energies"]))
+    gap_key = f"first{cp.SRB_CMP}_max_abs_e_diff_cpu_vs_card"
+    out = {"phase": "cli_surface", "part": "c_sqm_srb",
+           "run": "optmain diels_alder.xyz " + " ".join(cp.SRB_FLAGS)
+                  + f" -ns {cp.SRB_STEPS} --eigh_impl pallas",
+           **run, "first_energy": float(e[0]), "last_energy": float(e[-1]),
+           "finite": bool(np.isfinite(e).all()), **term,
+           "first_energy_minus_srb_sum": float(e[0]) - (
+               term["energy_without_srb"] + term["srb_energy"]),
+           "cpu_rerun_s": cpu["seconds"],
+           gap_key: float(np.abs(e[:n] - cpu["energies"][:n]).max()),
+           "kernel_launches": v, "k1_launches_by_shape": by_shape,
+           "card": card}
+    put(out)
+    gate(out["finite"] and abs(term["srb_energy"]) > 1e-6
+         and abs(out["first_energy_minus_srb_sum"]) <= 1e-10,
+         "(c) the SRB term at the reactant", out)
+    gate(out[gap_key] <= 1e-10, "(c) card vs CPU", out)
+
+    # (d) relaxedscan under -diis gdiis -d 0.5 and under -opt sd -d 0.5;
+    # the CPU's step and band through LAPACK
+    for tag, flags in cp.SCAN_RUNS.items():
+        flags = (*cp.SCAN_FLAGS, *flags)
+        jc.reset_launches()
+        run = relaxedscan_run(da_xyz, "cuda", f"{work}/scan_{tag}", flags)
+        v, by_shape = take()
+        cpu = relaxedscan_run(da_xyz, "cpu", f"{work}/scan_{tag}_cpu", flags,
+                              eigh_impl="xla")
+        out = {"phase": "cli_surface", "part": f"d_relaxedscan_{tag}",
+               "run": "relaxedscan diels_alder.xyz " + " ".join(flags)
+                      + " --eigh_impl pallas", **run,
+               "cpu_rerun_s": cpu["seconds"],
+               "max_abs_e_diff_cpu_vs_card": float(np.abs(
+                   np.subtract(run["energies"], cpu["energies"])).max()),
+               "kernel_launches": v, "k1_launches_by_shape": by_shape,
+               "card": card}
+        put(out)
+        gate(run["finite"] and run["points"] == 3
+             and out["max_abs_e_diff_cpu_vs_card"] <= 1e-8,
+             f"(d) relaxedscan {tag} card vs CPU", out)
+    tmp.cleanup()
+
+    # every f64 batch the phase launched that no row holds yet, timed
+    phase_s = time.perf_counter() - t_phase
+    gen = torch.Generator().manual_seed(10)
+    held = {(r["batch"], r["d"], r["sweeps"]) for r in rows
+            if r["dtype"] == "float64"}
+    for b, dd, sw in sorted({(b, dd, sw) for b, dd, tag, sw in seen_shapes
+                             if tag == "f64" and (b, dd, sw) not in held}):
+        rows.append(check_row(jc, gen, b, dd, torch.float64,
+                              f"batch of {b} in cli_surface", card,
+                              sweeps=sw))
+    emit({"phase": "cli_surface_done", "seconds": phase_s,
+          "with_kernel_rows_s": time.perf_counter() - t_phase,
+          "kernel_launches": totals, "card": card})
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1708,7 +1900,8 @@ def main():
                   phase_reaction_paths(jc, card, full_res, rows),
                   phase_dynamics_and_double_ended(jc, card, full_res),
                   phase_workflows(jc, card, full_res, rows),
-                  phase_optmain_surface(jc, card, full_res, rows)]
+                  phase_optmain_surface(jc, card, full_res, rows),
+                  phase_cli_surface(jc, card, full_res, rows)]
 
     kernels = []
     for variant in jc.VARIANTS:

@@ -3,27 +3,23 @@
 `relaxedscan`, `orientsearch`, `run_mapper`, `mdmain` and `ieipmain`,
 every command of the reference.
 
-Counterpart of `multioptpy_tpu/cli.py` for the flags the ported engines
-serve: the input and its charge and multiplicity, every backend of the
-reference (LJ, EMT, Tersoff, SQM/SQM2, Muller-Brown and the host bridges
-with their options `-xtb -dxtb -pyscf -func -bs -sub_bs -ecp -cpcm -alpb
--grid -u -mem -core -es -os -osp`), the optimizer (`-opt` with one
-method, or two for RMS-force switching), Hessian, convergence and trust
-flags, every bias potential flag of the reference (`-ma -kp -kpv2 -akp
--ka -kav2 -kda -kdav2 -kdac -kopa -kopav2 -wp -wwp -awp -vpp -vpwp -rp
--rpv2 -rpg -cp -fp -up -nrp -lmefp -lmefpv2 -esp -espap -brp -aerp
--aerpv2 -smp -metad`), the float64 switch, `optmain`'s `-diis`,
-`-delta`, constraints (`-fix`, `-pc`, `-gfix`), guards (`-sc`, `-dc`,
-`-negeigval`), calculator wrappers (`-of`, `-oniom`, `-mi`, `-mf`) and
-analyses (`-freq`, `-force_freq`, `-temp`, `-press`, `-cmds`, `-pca`,
-`-km`, `-nosymm`, `-gi`, `-pbc`), every flag of `nebmain`, `ircmain`'s
-`-im` and `-is`, `run_autots`'s `-cfg`, `-prod`, `-nimg` and `-p`, and
-every flag of `confsearch`, `relaxedscan`, `orientsearch`, `run_mapper`,
-`mdmain` and `ieipmain`. `--device` picks the card (default `cuda`) or
-the CPU; `--eigh_impl` picks the eigensolver of the RS-RFO step and of
-the SQM band. Any other flag of the reference exits with status 2 and
-names ROADMAP Queue 1 item 18. Atom selections accept the "1,2,4-7"
-syntax.
+Counterpart of `multioptpy_tpu/cli.py`, flag for flag: every command
+accepts the flags of the reference's parser for that command, with the
+same option strings, destinations, defaults and actions, and applies
+each as the reference does. One shared parser carries the flags common
+to every command: the input and its charge and multiplicity, every
+backend (LJ, EMT, Tersoff, SQM/SQM2 with `-srb`, Muller-Brown and the
+host bridges with their options), the optimizer (`-opt`, `-diis`,
+`-delta`, `-d`), Hessian, convergence and trust flags, every bias
+potential, constraints, guards and calculator wrappers. Where the
+reference parses a shared flag on a command and applies it to nothing
+(`-fix -pc -gi -dc -sc -gfix -of -negeigval -mi -mf` outside `optmain`,
+`-beta` outside `ieipmain`), so does the port (ROADMAP Queue 3, F10).
+The port's only flags of its own are `--device`, which picks the card
+(default `cuda`) or the CPU, and `--eigh_impl`, which picks the
+eigensolver of the RS-RFO step and of the SQM band. A flag of neither
+package exits with status 2 through argparse. Atom selections accept the
+"1,2,4-7" syntax.
 """
 
 import argparse
@@ -109,6 +105,17 @@ def _base_parser(description):
                         "lindh2007 | fischer | schlegel | swart | gfn0 | "
                         "gfnff | morse, with its suffixes")
     p.add_argument("-order", "--saddle_order", type=int, default=0)
+    p.add_argument("-diis", "--diis_variant", default=None,
+                   choices=["gdiis", "gediis", "kdiis", "ediis", "adiis",
+                            "c2diis"],
+                   help="DIIS extrapolation on the quasi-Newton steps")
+    p.add_argument("-delta", "--delta", type=float, default=1.0,
+                   help="first-order step scale")
+    p.add_argument("-d", "--DELTA", default=None,
+                   help="first-order step scale; 'x' means the method's "
+                        "default, and a value applies while -delta is 1.0")
+    p.add_argument("-srb", "--srb", action="store_true",
+                   help="the GFN0 short-range bond correction of -calc sqm")
     p.add_argument("-tight", "--tight_convergence_criteria",
                    action="store_true")
     p.add_argument("-loose", "--loose_convergence_criteria",
@@ -224,6 +231,40 @@ def _base_parser(description):
     p.add_argument("-out", "--output_dir", default=None)
     p.add_argument("-elec", "--electronic_charge", type=int, default=None)
     p.add_argument("-spin", "--spin_multiplicity", type=int, default=None)
+    # optmain's constraints, guards and calculator wrappers; the other
+    # commands parse them and apply them to nothing, as the reference's do
+    p.add_argument("-fix", "--fix_atoms", default="",
+                   help="frozen atoms, e.g. 1,2,5-8")
+    p.add_argument("-pc", "--projection_constrain", nargs="*", default=[],
+                   help="bond i,j [value_ang] | angle i,j,k [deg] | "
+                        "dihedral i,j,k,l [deg] | fbond f1 f2 [ang] | "
+                        "x|y|z atoms | atoms_pair i,j | rot | eigvec k")
+    p.add_argument("-gi", "--geom_info", nargs="*", default=[],
+                   help="track internal coordinates per step: bond i,j | "
+                        "angle i,j,k | dihedral i,j,k,l (repeatable pairs)")
+    p.add_argument("-dc", "--dissociate_check", default="10",
+                   help="abort when fragments separate beyond this many "
+                        "ang")
+    p.add_argument("-sc", "--shape_conditions", nargs="*", default=[],
+                   help="abort unless [value gt|lt atoms] conditions hold, "
+                        "e.g. 2.0 gt 1,2")
+    p.add_argument("-gfix", "--gradient_fix_atoms", nargs="*", default=[],
+                   help="zero the bond-stretch gradient of atom pairs, "
+                        "e.g. 1,2")
+    p.add_argument("-of", "--opt_fragment", nargs="*", default=[],
+                   help="fragment-averaged gradients: one atom list per "
+                        "rigid fragment, e.g. 1-10 11-18")
+    p.add_argument("-negeigval", "--detect_negative_eigenvalues",
+                   action="store_true",
+                   help="stop a saddle search (with -fc) whose Hessian has "
+                        "no negative eigenvalue left")
+    p.add_argument("-mi", "--microiter", type=int, default=0,
+                   help="low-layer microiterations per ONIOM step")
+    p.add_argument("-beta", "--BETA", type=float, default=1.0,
+                   help="ieipmain: scale of the image-pair attraction")
+    p.add_argument("-mf", "--model_function", nargs="*", default=[],
+                   help="2-state model function: [kind charge2 mult2], "
+                        "kind in seam/avoiding/conical/mesx/mesx2/meci")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     p.add_argument("--eigh_impl", default=None,
@@ -234,17 +275,6 @@ def _base_parser(description):
                         "torch.linalg.eigh for the step, the kernel for the "
                         "band on the card)")
     return p
-
-
-def _parse(p, argv):
-    """parse_args that names the ROADMAP item for the reference's other
-    flags instead of argparse's bare 'unrecognized arguments'."""
-    args, extra = p.parse_known_args(argv)
-    if extra:
-        p.exit(2, f"{p.prog}: not ported: {' '.join(extra)} (the rest of "
-                  "the reference's flags arrive with ROADMAP Queue 1 item "
-                  "18)\n")
-    return args
 
 
 def _load_system(args):
@@ -274,6 +304,8 @@ def _make_calculator(args):
     kw = {}
     if args.calculator:
         name = args.calculator
+        if name == "sqm" and args.srb:
+            kw["srb"] = True
     elif args.sqm2:
         name = "sqm2"
     elif args.sqm1:
@@ -614,8 +646,11 @@ def _opt_config(args):
               saddle_order=args.saddle_order, fc_count=args.fc_count,
               mfc_count=args.mfc_count, trust_radius_ang=args.trust_radius,
               trust_radius_min_ang=args.min_trust_radius,
-              diis_variant=getattr(args, "diis_variant", None),
-              delta=getattr(args, "delta", 1.0))
+              diis_variant=args.diis_variant, delta=args.delta)
+    # -d/--DELTA: "x" (or absent) keeps the method's default; a value
+    # feeds the first-order step scale while -delta stays at 1.0
+    if args.DELTA not in (None, "x") and kw["delta"] == 1.0:
+        kw["delta"] = float(args.DELTA)
     if args.eigh_impl:
         kw["eigh_impl"] = args.eigh_impl
     mh = args.model_hessian or args.use_model_hessian
@@ -776,47 +811,12 @@ def run_optmain(argv=None):
     (one row per step), geometry_params.csv (-gi), bias_param_grads.csv
     (dE/dparam of every bias potential per step, under bias flags), and
     the analyses asked for (-freq, -cmds, -pca, -km); the point group is
-    printed unless -nosymm. Exit status 0 when converged."""
+    printed unless -nosymm; -irc chains an IRC (irc_path.xyz,
+    irc_energies.csv). Exit status 0 when converged."""
     p = _base_parser("multioptpy_tpu_torch geometry optimization")
-    p.add_argument("-diis", "--diis_variant", default=None,
-                   choices=["gdiis", "gediis", "kdiis", "ediis", "adiis",
-                            "c2diis"],
-                   help="DIIS extrapolation on the quasi-Newton steps")
-    p.add_argument("-delta", "--delta", type=float, default=1.0,
-                   help="first-order step scale")
-    p.add_argument("-fix", "--fix_atoms", default="",
-                   help="frozen atoms, e.g. 1,2,5-8")
-    p.add_argument("-pc", "--projection_constrain", nargs="*", default=[],
-                   help="bond i,j [value_ang] | angle i,j,k [deg] | "
-                        "dihedral i,j,k,l [deg] | fbond f1 f2 [ang] | "
-                        "x|y|z atoms | atoms_pair i,j | rot | eigvec k")
-    p.add_argument("-gfix", "--gradient_fix_atoms", nargs="*", default=[],
-                   help="zero the bond-stretch gradient of atom pairs, "
-                        "e.g. 1,2")
-    p.add_argument("-sc", "--shape_conditions", nargs="*", default=[],
-                   help="abort unless [value gt|lt atoms] conditions hold, "
-                        "e.g. 2.0 gt 1,2")
-    p.add_argument("-dc", "--dissociate_check", default="10",
-                   help="abort when fragments separate beyond this many "
-                        "ang")
-    p.add_argument("-negeigval", "--detect_negative_eigenvalues",
-                   action="store_true",
-                   help="stop a saddle search (with -fc) whose Hessian has "
-                        "no negative eigenvalue left")
-    p.add_argument("-gi", "--geom_info", nargs="*", default=[],
-                   help="track internal coordinates per step: bond i,j | "
-                        "angle i,j,k | dihedral i,j,k,l (repeatable pairs)")
-    p.add_argument("-of", "--opt_fragment", nargs="*", default=[],
-                   help="fragment-averaged gradients: one atom list per "
-                        "rigid fragment, e.g. 1-10 11-18")
     p.add_argument("-oniom", "--oniom_flag", nargs="*", default=[],
                    help="2-layer ONIOM: high_layer_atoms [low_calc "
                         "(default lj)]")
-    p.add_argument("-mi", "--microiter", type=int, default=0,
-                   help="low-layer microiterations per ONIOM step")
-    p.add_argument("-mf", "--model_function", nargs="*", default=[],
-                   help="2-state model function: [kind charge2 mult2], "
-                        "kind in seam/avoiding/conical/mesx/mesx2/meci")
     p.add_argument("-freq", "--frequency_analysis", action="store_true",
                    help="normal modes and RRHO thermochemistry after "
                         "convergence")
@@ -825,6 +825,11 @@ def run_optmain(argv=None):
                    help="the frequency analysis whether converged or not")
     p.add_argument("-temp", "--temperature", type=float, default=298.15)
     p.add_argument("-press", "--pressure", type=float, default=101325.0)
+    p.add_argument("-irc", "--intrinsic_reaction_coordinates", nargs="*",
+                   default=None,
+                   help="an IRC after the optimization: [step_size "
+                        "max_steps method] (default 0.05 200 lqa); a meta-"
+                        "IRC where the Hessian has no negative eigenvalue")
     p.add_argument("-cmds", "--cmds", action="store_true",
                    help="CMDS embedding of the optimization path")
     p.add_argument("-pca", "--pca", action="store_true",
@@ -837,7 +842,7 @@ def run_optmain(argv=None):
                    help="periodic cell lengths in ang: [a b c] (parsed, "
                         "applied to nothing, as in the reference: ROADMAP "
                         "Queue 3, F8)")
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, coords, z = _load_system(args)
     calc = _optmain_calculator(args, coords)
     bias = _make_bias(args, z)
@@ -895,13 +900,52 @@ def run_optmain(argv=None):
     if not args.no_symmetry_analyzer:
         _print_point_group(res.coords, z)
     _path_analyses(args, res, out)
+    if args.intrinsic_reaction_coordinates is not None:
+        _chain_irc(args.intrinsic_reaction_coordinates, calc, bias, res,
+                   symbols, z, out)
     return 0 if bool(res.converged) else 1
+
+
+def _chain_irc(spec, calc, bias, res, symbols, z, out):
+    """-irc [step max method] after the optimization: the IRC from the
+    optimized structure when its exact Hessian has an eigenvalue below
+    -1e-6, else the downhill meta-IRC. irc_path.xyz (the backward branch
+    reversed, then the forward one), irc_energies.csv and the curvature
+    CSVs."""
+    from multioptpy_tpu_torch.drivers.irc import IRCConfig, irc, meta_irc
+    from multioptpy_tpu_torch.io.xyz import write_trajectory
+    from multioptpy_tpu_torch.units import BOHR2ANGSTROM
+
+    spec = list(spec)
+    cfg = IRCConfig(step_size=float(spec[0]) if len(spec) > 0 else 0.05,
+                    n_steps=int(spec[1]) if len(spec) > 1 else 200,
+                    method=spec[2] if len(spec) > 2 else "lqa")
+    dev = res.coords.device
+    h = calc.hessian(res.coords[None], z)[0]
+    if bool((torch.linalg.eigvalsh(h) < -1e-6).any()):
+        irc_res = irc(calc, res.coords, z, hessian=h, config=cfg,
+                      bias_engine=bias, device=dev)
+    else:
+        print("no imaginary mode -> meta-IRC (downhill relaxation)")
+        irc_res = meta_irc(calc, res.coords, z, config=cfg, bias_engine=bias,
+                           device=dev)
+    both = np.concatenate([irc_res.backward_path[::-1],
+                           irc_res.forward_path])
+    write_trajectory(os.path.join(out, "irc_path.xyz"), symbols,
+                     both * BOHR2ANGSTROM)
+    np.savetxt(os.path.join(out, "irc_energies.csv"),
+               np.concatenate([irc_res.backward_energies[::-1],
+                               irc_res.forward_energies]),
+               header="energy_hartree")
+    _write_irc_curvature(out, irc_res, z, cfg.step_size)
+    print(f"IRC: {len(both)} points -> {out}/irc_path.xyz")
 
 
 def run_autots_cli(argv=None, stage_hook=None):
     """AutoTS pipeline: ts.xyz, irc_end_1.xyz and irc_end_2.xyz in
     `<input>_autots/`. `-cfg` takes a JSON file: the reference's v1 legacy
-    format (step1_settings..step4_settings), {"autots": {scalar fields
+    format (step1_settings..step4_settings; with "skip_to_step4" the input
+    is the TS guess and only steps 3 and 4 run), {"autots": {scalar fields
     of AutoTSConfig}}, or a v2 "workflow" (workflows/autots_v2.py: its step
     reports in workflow_report.json, and ts.xyz once a saddle step ran).
     `stage_hook` goes to the v2 engine."""
@@ -912,7 +956,7 @@ def run_autots_cli(argv=None, stage_hook=None):
     p.add_argument("-p", "--partition", type=int, default=0,
                    help="number of interpolation nodes (overrides -nimg "
                         "when > 0)")
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
     from multioptpy_tpu_torch.io.xyz import read_xyz
@@ -938,9 +982,6 @@ def run_autots_cli(argv=None, stage_hook=None):
                 cfg, n_images_default=n_images)
         else:
             kw.update(cfg.get("autots", {}))
-    if flow.get("skip_to_step4"):
-        raise NotImplementedError(
-            "the v1 skip_to_step4 flow arrives with ROADMAP Queue 1 item 18")
     if ts_config is None:
         if args.manual_AFIR:
             kw["afir_gamma"] = float(args.manual_AFIR[0])
@@ -958,6 +999,9 @@ def run_autots_cli(argv=None, stage_hook=None):
         _, prod_ang = read_xyz(args.product)
         product = torch.as_tensor(prod_ang * ANGSTROM2BOHR,
                                   dtype=coords.dtype, device=coords.device)
+    if flow.get("skip_to_step4"):
+        return _autots_from_ts_guess(args, symbols, coords, z, calc,
+                                     ts_config)
     res = autots(calc, coords, z, ts_config, product_coords=product,
                  device=args.device)
     out = _outdir(args, "_autots")
@@ -968,6 +1012,36 @@ def run_autots_cli(argv=None, stage_hook=None):
     print(f"AutoTS: TS E = {res.ts_energy:.8f} ({res.n_imaginary} imaginary)"
           f"; barriers {res.barrier_forward:.6f} / "
           f"{res.barrier_backward:.6f} Ha -> {out}/")
+    return 0
+
+
+def _autots_from_ts_guess(args, symbols, coords, z, calc, ts_config):
+    """The v1 flow `skip_to_step4`: the input is the TS guess. Its saddle
+    refinement, the exact Hessian's imaginary modes, the IRC and the
+    optimization of each branch's end; ts.xyz, irc_end_1.xyz (the forward
+    end) and irc_end_2.xyz in `<input>_autots/`."""
+    from multioptpy_tpu_torch.analysis.vibrations import (count_imaginary,
+                                                          normal_modes)
+    from multioptpy_tpu_torch.drivers.irc import irc
+    from multioptpy_tpu_torch.drivers.optimize import optimize
+    from multioptpy_tpu_torch.workflows.autots import refine_saddle
+
+    dev = coords.device
+    res3 = refine_saddle(calc, coords, z, ts_config.saddle, device=dev)
+    h_ts = calc.hessian(res3.coords[None], z)[0]
+    ni = count_imaginary(normal_modes(h_ts, res3.coords, z).frequencies_cm1)
+    irc_res = irc(calc, res3.coords, z, hessian=h_ts, config=ts_config.irc,
+                  device=dev)
+    ends = [optimize(calc, torch.as_tensor(branch[-1], device=dev), z,
+                     config=ts_config.endpoint_opt, device=dev).coords
+            for branch in (irc_res.forward_path, irc_res.backward_path)]
+    out = _outdir(args, "_autots")
+    _write(os.path.join(out, "ts.xyz"), symbols, res3.coords,
+           f"E = {float(res3.energy):.10f}, n_imag = {ni}")
+    _write(os.path.join(out, "irc_end_1.xyz"), symbols, ends[0])
+    _write(os.path.join(out, "irc_end_2.xyz"), symbols, ends[1])
+    print(f"AutoTS (skip_to_step4): TS E = {float(res3.energy):.8f} "
+          f"({ni} imaginary) -> {out}/")
     return 0
 
 
@@ -1275,7 +1349,7 @@ def neb_job(argv=None):
     from multioptpy_tpu_torch.periodic import symbols_to_z
 
     p = _neb_parser()
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, path0 = _neb_initial_path(args, resolve_device(args.device))
     z = np.asarray(symbols_to_z(symbols))
     if args.use_cfb_enm:
@@ -1369,7 +1443,7 @@ def run_ircmain(argv=None):
     p = _base_parser("multioptpy_tpu_torch IRC")
     p.add_argument("-im", "--irc_method", default="lqa")
     p.add_argument("-is", "--irc_step", type=float, default=0.05)
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
     from multioptpy_tpu_torch.drivers.irc import IRCConfig, irc
@@ -1447,7 +1521,7 @@ def run_mdmain(argv=None):
                    help="CMDS embedding of the trajectory")
     p.add_argument("-pca", "--pca", action="store_true",
                    help="PCA embedding of the trajectory")
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     if args.md_nstep is not None:
         args.NSTEP = args.md_nstep
     if args.timestep_au is not None:
@@ -1566,9 +1640,7 @@ def run_ieipmain(argv=None):
     p.add_argument("-2pshs_step", "--twoPshs_step_size", type=float,
                    default=0.05)
     p.add_argument("-2pshs_num", "--twoPshs_step_num", type=int, default=300)
-    p.add_argument("-beta", "--BETA", type=float, default=1.0,
-                   help="scale of the image-pair attraction")
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     _discover_pair(args)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
@@ -1687,7 +1759,7 @@ def run_confsearch(argv=None, stage_hook=None):
                    help="frequency-penalized seed selection")
     p.add_argument("-alpha", "--tabu_alpha", type=float, default=0.5,
                    help="tabu visit-count penalty coefficient")
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
     from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig
@@ -1742,7 +1814,7 @@ def run_relaxedscan(argv=None):
                    help="scan points")
     p.add_argument("-fo", "--first_only", action="store_true",
                    help="seed every point from the input structure")
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
     from multioptpy_tpu_torch.io.xyz import write_trajectory
@@ -1805,7 +1877,7 @@ def run_orientsearch(argv=None):
     p.add_argument("-dist", "--distance", type=float, default=None,
                    help="fragment-center separation [Angstrom] before "
                         "orientation sampling")
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
     from multioptpy_tpu_torch.io.xyz import write_trajectory
@@ -1861,7 +1933,7 @@ def run_mapper_cli(argv=None, stage_hook=None):
     p.add_argument("--rcmc_time", type=float, default=None,
                    help="RCMC reaction time [s]")
     p.add_argument("--rcmc_start_node", type=int, default=None)
-    args = _parse(p, argv)
+    args = p.parse_args(argv)
     symbols, coords, z = _load_system(args)
     calc = _make_calculator(args)
     from multioptpy_tpu_torch.workflows.mapper import (MapperConfig,
@@ -1923,10 +1995,6 @@ COMMANDS = {
     "ieipmain": run_ieipmain,
 }
 
-# the reference's commands not ported yet, with the ROADMAP item that ports
-# each (none is left)
-UNPORTED_COMMANDS = {}
-
 
 def main(argv=None):
     """`python -m multioptpy_tpu_torch <command> ...` dispatch."""
@@ -1936,10 +2004,6 @@ def main(argv=None):
               f"commands: {' '.join(COMMANDS)}")
         return 0 if argv else 2
     cmd = argv.pop(0)
-    if cmd in UNPORTED_COMMANDS:
-        print(f"error: '{cmd}' is not ported yet (ROADMAP Queue 1 item "
-              f"{UNPORTED_COMMANDS[cmd]})", file=sys.stderr)
-        return 2
     if cmd not in COMMANDS:
         print(f"error: unknown command '{cmd}' "
               f"(choose from {', '.join(COMMANDS)})", file=sys.stderr)

@@ -4,9 +4,9 @@ and a spline redistribution, and with a v2 workflow), optmain on H2O+
 (also with the bare -modelhess), nebmain on an Ar5 band, ircmain on
 Muller-Brown with each integrator, and confsearch, relaxedscan,
 orientsearch and run_mapper on Ar clusters (Lennard-Jones) write the same
-files; every command of the reference dispatches; flags outside the port
-exit with status 2 naming their ROADMAP item; the device defaults to the
-card. The n-octane fixture matches the reference's."""
+files; every command of the reference dispatches; a flag of neither
+package exits with status 2 through argparse in both; the device
+defaults to the card. The n-octane fixture matches the reference's."""
 
 import json
 
@@ -76,19 +76,19 @@ def test_optmain_writes_the_reference_geometry(tmp_path, capsys):
 
 
 def test_unported_commands_and_flags_exit_2(tmp_path, capsys):
-    from multioptpy_tpu_torch import cli
-
     args = _mb_inputs(tmp_path)
-    # every command of the reference dispatches; none is left unported
-    assert cli.UNPORTED_COMMANDS == {}
-    assert set(ref_main.COMMANDS) <= set(port_main.COMMANDS)
+    # every command of the reference dispatches
+    assert set(ref_main.COMMANDS) == set(port_main.COMMANDS)
     for name in ref_main.COMMANDS:
         assert port_main.COMMANDS[name].__name__ == \
             ref_main.COMMANDS[name].__name__
-    with pytest.raises(SystemExit) as exc:
-        port_main.main(["run_autots", *args, "-freq", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "item 18" in capsys.readouterr().err
+    # a flag of neither package: argparse's own exit, in both
+    for main, extra in ((ref_main.main, []),
+                        (port_main.main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as exc:
+            main(["run_autots", *args, "-freq", *extra])
+        assert exc.value.code == 2
+        assert "unrecognized arguments: -freq" in capsys.readouterr().err
     assert port_main.main(["unknown"]) == 2
 
 
@@ -274,15 +274,25 @@ def test_neb_job_is_what_nebmain_runs(tmp_path):
 
 
 def test_nebmain_flags_outside_the_slice_exit_2(tmp_path, capsys):
-    """The reference's base-parser flags that nebmain does not act on yet
-    (item 18) exit with status 2; -spng is ported (its own test)."""
+    """nebmain parses the shared -fix and, as the reference, applies it to
+    nothing (ROADMAP Queue 3, F10): `-fix 1` gives the band of the run
+    without it, in both packages, and the port's band is the reference's.
+    A flag of neither package (-freq) exits with status 2 in both."""
     a, b = _ar5_pair(tmp_path)
-    for flags, item in ((["-fix", "1"], "item 18"),):
+    args = [a, "-i2", b, "-nimg", "4", "-ns", "3", "-calc", "lj"]
+    for main, tag, extra in ((ref_main.main, "ref", []),
+                             (port_main.main, "port", ["--device", "cpu"])):
+        for sub, flags in (("", []), ("_fix", ["-fix", "1"])):
+            assert main(["nebmain", *args, *flags, *extra, "-out",
+                         str(tmp_path / f"{tag}{sub}")]) == 0
+        for name in ("neb_path.xyz", *_NEB_CSVS):
+            assert (tmp_path / f"{tag}_fix" / name).read_text() == \
+                (tmp_path / tag / name).read_text(), (tag, name)
         with pytest.raises(SystemExit) as exc:
-            port_main.main(["nebmain", a, "-i2", b, *flags, "--device",
-                            "cpu"])
+            main(["nebmain", *args, "-freq", *extra])
         assert exc.value.code == 2
-        assert item in capsys.readouterr().err
+    capsys.readouterr()
+    _compare_neb_outputs(tmp_path / "ref", tmp_path / "port")
 
 
 def test_nebmain_spng_plots_or_raises_without_matplotlib(tmp_path, capsys,
