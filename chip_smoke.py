@@ -157,8 +157,8 @@ Phases, each printing one JSON line:
      executor's first 3 steps within 1e-8 Ha of the CPU, finite kinetic
      priorities. The CPU reruns of (a)-(c), which start from exact
      Hessians, take the band through LAPACK. kernel_check rows follow at
-     1x104, 16x104 (9 sweeps), 1x78, 16x78 (15) and 16x54 (14), timed, and
-     at every other f64 batch the phase's main runs launched. In this
+     1x104, 16x104 (9 sweeps), 1x78, 16x78 (15) and 16x54 (14), and at
+     every other f64 batch the phase's main runs launched, all timed. In this
      phase and the dynamics phase, the launches of a check or rerun on
      the card are discarded: the kernels line counts the main runs'.
  10. optmain_surface: the rest of optmain on SQM2 f64, each part held to
@@ -188,8 +188,8 @@ Phases, each printing one JSON line:
      search between the flagship's IRC ends, 5 steps each; AutoTS on
      Muller-Brown), finite; then optimize's StageTimer on 10 SQM2 steps
      with and without RunLogger's callback (the logger's host cost a
-     step). kernel_check rows follow at 1x32 and 1x40,
-     timed, and at every other f64 batch the phase's main runs launched.
+     step). kernel_check rows follow at 1x32 and 1x40, and at every
+     other f64 batch the phase's main runs launched, all timed.
  11. cli_surface: the command-line flags that act, at full width, each
      part held to the CPU (multioptpy_tpu_torch/cli_paths.py). (a)
      optmain ts.xyz -calc sqm2 -order 1 -o rfo_bofill -ns 5 -irc 0.1 10
@@ -211,10 +211,53 @@ Phases, each printing one JSON line:
      pallas: each point's energy within 1e-8 Ha of the same scan on the
      CPU. Timed kernel_check rows follow for every f64 batch the phase's
      main runs launched that no row holds yet.
+ 12. mesh: the device mesh on meshes of cuda:0 (multioptpy_tpu_torch/
+     mesh_paths.py), each sharded run against its unsharded counterpart on
+     the card. (a) On the full flagship's 16-image initial band, 4 shards
+     of 4 images (SQM2 f64, K1 at 4x72 a gradient): CI-NEB with FIRE for
+     20 iterations (climbing from 10), held to the card's own
+     make_neb_step loop to 1e-10 Ha and 1e-9 Bohr and its first 3
+     iterations' energies to the same band's on the CPU (the kernel's
+     algorithm) to 1e-8 Ha; qsm2 (the gathered band) for 10 and NEB with
+     the global L-BFGS clock for 8 (1e-10 Ha, 1e-10 / 1e-9 Bohr). (b) The
+     full flagship AutoTS with mesh = 2 shards of cuda:0 (8 images a
+     shard, one saddle candidate a shard, 250 band iterations without
+     redistribution, as the reference's mesh path runs them; the saddle
+     refinement cut from 120 steps to 60: mesh_paths.
+     FLAGSHIP_SADDLE_STEPS): one imaginary mode, two distinct IRC
+     endpoints below the TS; the band within 1e-10 Ha and 1e-9 Bohr of the
+     same 250 iterations unsharded (neb_scan), the TS within 1e-6 Ha of an
+     unsharded refinement of the same NEB image; its gap to the unsharded
+     full flagship's TS, whose band redistributes every 25 iterations,
+     printed (another saddle: ROADMAP Queue 3, F11); each stage's wall
+     time beside the unsharded one's. Then -aneb 1 5 for 10 iterations on
+     (b)'s band (the flagship's initial band has no interior maximum)
+     through aneb_sharded against a one-shard mesh with the same rounding
+     (1e-10), the band grown to a multiple of 4. (c) One round of 16
+     n-octane conformer candidates (-sqm2 -bsize 16 -pbc, kick and
+     relaxation cut to 10 steps each: mesh_paths.CONF_*), 4 shards of 4
+     (K1 at 4x104, 4x78 and 624x104), held to the unsharded round to 1e-10
+     Ha and 1e-8 Bohr; slice A's 256 rings (SQM f32) through
+     sharded_optimize_batch for 10 steps, 4 shards of 64 (K1 at 64x24,
+     64x32 and 3072x32 f32), every step held to 3e-5 of |E| (slice A's f32
+     bound) of the same 64-ring blocks run unsharded one by one; the gap
+     of each step to the unsharded run of all 256 printed (an f32 step on
+     the card depends on the batch it runs in: ROADMAP Queue 3, F12). (d)
+     2 shards: GPNEB on the Muller-Brown band of 4 images (1e-10 Ha, 1e-9
+     Bohr), the mapper's batched AFIR executor on two Diels-Alder tasks,
+     one a shard (1e-10 Bohr), optimize_batch on tests/test_parallel.py's
+     LJ batch (rtol 1e-10). Each run prints its shards, members per shard,
+     wall s, ms per step or iteration beside the unsharded run's and their
+     ratio, its K1 launches by shape and its gaps; the launches counted
+     are the sharded runs'. Timed kernel_check rows follow for every shape
+     the phase launched that no timed row holds yet.
 Slice A must launch the warp variant and slice B the block variant. The
 kernel_check rows time the wrapper and the kernel launch alone (padded
 input, no sort or gather) as the median of 3 groups of CUDA-event timings
-each, the plain version as one call after a warm one. Then
+each, the plain version as one call after a warm one (the call it is
+compared with), torch.linalg.eigh
+as the wrapper, or as one call after a warm one where a call takes over
+0.1 s. Then
 the kernels line (one entry per variant), the card's name and power
 limit, and last the fixed
 {"ok": true, "device": ...} line. Any failed check raises: exit code != 0.
@@ -301,6 +344,16 @@ def median_ms(fn, groups=3):
     return float(np.median([cuda_ms(fn) for _ in range(groups)]))
 
 
+def once_ms(fn):
+    """One call of fn on the card, ms by CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
 def check_row(jc, gen, b, d, dtype, where, card, timed=True, sweeps=None):
     """One kernel_check row: the kernel against its plain version on a
     random (b, d, d) batch at `sweeps`, else at the sweeps of `where` (a
@@ -372,10 +425,14 @@ def check_row(jc, gen, b, d, dtype, where, card, timed=True, sweeps=None):
         a3 = jc.pad_to_even(a)[0].contiguous()
         plan = jc.launch_plan(b, a3.shape[-1], dtype, jc._prepare(0, dtype))
         row["kernel_only_ms"] = median_ms(lambda: jc.launch(a3, sw, plan))
-        # one timed call after a warm one: the plain version takes 0.3-1.3 s
-        row["plain_ms"] = cuda_ms(lambda: jc.jacobi_eigh_plain(a, sw),
-                                  reps=1)
-        row["library_ms"] = median_ms(lambda: torch.linalg.eigh(a))
+        # one timed call after a warm one (the comparison's above): the
+        # plain version takes 0.1-3 s
+        row["plain_ms"] = once_ms(lambda: jc.jacobi_eigh_plain(a, sw))
+        # torch.linalg.eigh takes up to seconds at the largest batches:
+        # one timed call after a warm one there
+        lib_ms = cuda_ms(lambda: torch.linalg.eigh(a), reps=1)
+        row["library_ms"] = (lib_ms if lib_ms > 100.0 else
+                             median_ms(lambda: torch.linalg.eigh(a)))
         row["bound_ms"], row["bound_by"] = bound_ms(b, d, sw, dtype)
     emit({"phase": "kernel_check", **row, "card": card})
     if not ok:
@@ -661,7 +718,7 @@ def phase_autots(jc, card, full=False):
             raise AssertionError(f"autots: {out['cpu_n_imaginary']} "
                                  f"imaginary modes on the CPU, "
                                  f"{res.n_imaginary} on the card")
-    return launches, res
+    return launches, res, detail
 
 
 def reduced_on_cpu(res, detail, coords, z):
@@ -1263,8 +1320,8 @@ def phase_workflows(jc, card, full_res, rows):
     through K1; multioptpy_tpu_torch/workflow_paths.py), each against a
     CPU rerun through the kernel's algorithm. Appends kernel_check rows
     for the new shapes: n-octane's band (104) and RS-RFO Hessian (78) at
-    batches of 1 and 16, and orientsearch's 16x54 RS-RFO Hessian, timed;
-    every other f64 batch the phase launched, held to the plain version."""
+    batches of 1 and 16, and orientsearch's 16x54 RS-RFO Hessian, and
+    every other f64 batch the phase launched, all timed."""
     import tempfile
 
     from multioptpy_tpu_torch import workflow_paths as wp
@@ -1482,7 +1539,7 @@ def phase_workflows(jc, card, full_res, rows):
          "(f) card vs CPU", out)
     tmp.cleanup()
 
-    # the new shapes, timed; then every other f64 batch the phase launched
+    # the new shapes; then every other f64 batch the phase launched, timed
     phase_s = time.perf_counter() - t_phase
     gen = torch.Generator().manual_seed(3)
     for b, d, where in ((1, 104, "n-octane SQM2 band per gradient"),
@@ -1496,7 +1553,7 @@ def phase_workflows(jc, card, full_res, rows):
                              if tag == "f64" and (b, dd, sw) not in held}):
         rows.append(check_row(jc, gen, b, dd, torch.float64,
                               f"batch of {b} in workflows", card,
-                              timed=False, sweeps=sw))
+                              sweeps=sw))
     emit({"phase": "workflows_done", "seconds": phase_s,
           "with_kernel_rows_s": time.perf_counter() - t_phase,
           "kernel_launches": totals, "card": card})
@@ -1510,8 +1567,8 @@ def phase_optmain_surface(jc, card, full_res, rows):
     (b) orbitals, (c) ONIOM with and without -mi, (d) a two-state seam,
     (e) fragment-averaged gradients under a bias and EDEEL's fragments,
     (f) EMT and Tersoff, (g) the five Jobs. Appends timed kernel_check
-    rows for the new K1 shapes 1x32 and 1x40; every other f64 batch the
-    main runs launched is held to the plain version, untimed."""
+    rows for the new K1 shapes 1x32 and 1x40 and every other f64 batch the
+    main runs launched."""
     import tempfile
 
     from multioptpy_tpu_torch import optmain_paths as op
@@ -1700,7 +1757,7 @@ def phase_optmain_surface(jc, card, full_res, rows):
                              if tag == "f64" and (b, dd, sw) not in held}):
         rows.append(check_row(jc, gen, b, dd, torch.float64,
                               f"batch of {b} in optmain_surface", card,
-                              timed=False, sweeps=sw))
+                              sweeps=sw))
     emit({"phase": "optmain_surface_done", "seconds": phase_s,
           "with_kernel_rows_s": time.perf_counter() - t_phase,
           "kernel_launches": totals, "card": card})
@@ -1878,6 +1935,230 @@ def phase_cli_surface(jc, card, full_res, rows):
     return totals
 
 
+def phase_mesh(jc, card, full_res, full_detail, rows):
+    """The device mesh on meshes of cuda:0 (multioptpy_tpu_torch/
+    mesh_paths.py), each sharded run held to its unsharded counterpart on
+    the card: (a) the sharded band on the full flagship's 16-image initial
+    band, 4 shards (CI-NEB with FIRE, its first iterations also on a CPU
+    mesh; qsm2; NEB with L-BFGS; -aneb 1 5); (b) the full flagship AutoTS
+    on 2 shards against the unsharded one of `phase_autots`; (c) a
+    16-candidate n-octane conformer round and slice A's 256 rings through
+    sharded_optimize_batch, 4 shards; (d) GPNEB, the mapper's batched AFIR
+    executor and optimize_batch on 2 shards. The launches counted are the
+    sharded runs'; timed kernel_check rows follow for every shape they
+    launched that no row holds yet."""
+    import dataclasses
+
+    from multioptpy_tpu_torch import mesh_paths as mp
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.drivers.neb import neb_scan
+    from multioptpy_tpu_torch.io.fixtures import (alkane_chain,
+                                                  diels_alder_reactant)
+    from multioptpy_tpu_torch.workflows.autots import autots, refine_saddle
+
+    torch.set_num_threads(8)
+    t_phase = time.perf_counter()
+    totals = dict.fromkeys(jc.VARIANTS, 0)
+    seen_shapes = set()
+    counted = {}
+
+    def take():
+        """The sharded run's launches since the last reset, added to the
+        phase's totals; resets (the unsharded counterpart's launches are
+        discarded with jc.reset_launches())."""
+        v = dict(jc.jacobi_eigh_cuda.variant_launches)
+        for k in totals:
+            totals[k] += v[k]
+        seen_shapes.update(jc.jacobi_eigh_cuda.shape_launches)
+        counted.update(kernel_launches=v,
+                       k1_launches_by_shape=shape_counts(jc))
+        jc.reset_launches()
+
+    def gate(ok, what, out):
+        if not ok:
+            raise AssertionError(f"mesh {what}: {out}")
+
+    def put(part, run, **extra):
+        out = {"phase": "mesh", "part": part, **run, **extra, **counted,
+               "phase_elapsed_s": time.perf_counter() - t_phase,
+               "card": card}
+        emit(out)
+        jc.reset_launches()
+        return out
+
+    da, z = diels_alder_reactant()
+    path0 = full_detail["path0"]
+    calc = SQM2(eigh_impl="pallas", device="cuda")
+
+    # (a) the sharded band, 4 shards of 4 images
+    bands = (("cineb", "fire", mp.BAND_ITERATIONS, 1e-9),
+             ("qsm2", "fire", mp.GATHER_ITERATIONS, 1e-10),
+             ("neb", "lbfgs", mp.LBFGS_ITERATIONS, 1e-9))
+    for variant, opt, n, tol_x in bands:
+        jc.reset_launches()
+        run = mp.band_pair(calc, path0, z, mp.band_config(variant, opt, n),
+                           "cuda", between=take)
+        energies = run.pop("energies")
+        extra = {}
+        if variant == "cineb":
+            extra = mp.band_cpu_check(path0, z, energies)
+        out = put(f"a_band_{variant}_{opt}", run, **extra)
+        gate(run["shards_stayed_on_their_devices"]
+             and run["iteration"] == n and np.isfinite(energies).all(),
+             f"(a) {variant} {opt} ran", out)
+        gate(run["max_abs_e_diff_vs_unsharded"] <= 1e-10
+             and run["max_abs_x_diff_vs_unsharded"] <= tol_x
+             and run["fmax_diff_vs_unsharded"] <= (1e-10 if opt == "lbfgs"
+                                                   else 1e-12),
+             f"(a) {variant} {opt} against the unsharded band", out)
+        for key, gap in extra.items():
+            if key.endswith("cpu_vs_card"):
+                gate(gap <= 1e-8, "(a) card vs CPU", out)
+
+    # (b) the full flagship on 2 shards
+    stage_s, clock, detail = {}, [0.0], {}
+
+    def hook(name, **info):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        stage_s[name] = now - clock[0]
+        clock[0] = now
+        detail.update(info)
+
+    jc.reset_launches()
+    t0 = clock[0] = time.perf_counter()
+    cfg_b = mp.flagship_on_a_mesh_config()
+    res = autots(calc, da, z, cfg_b, device="cuda",
+                 mesh=mp.mesh_of("cuda", mp.PAIR_SHARDS), stage_hook=hook)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    take()
+    # the mesh path's band runs its iterations without redistribution (as
+    # the reference's neb_sharded): held to the same band unsharded, and
+    # its TS to an unsharded refinement of the same NEB image
+    neb_cfg = dataclasses.replace(cfg_b.neb,
+                                  redistribute="", redistribute_every=0)
+    t1 = time.perf_counter()
+    band_one = neb_scan(calc, detail["path0"], z, neb_cfg, device="cuda")
+    pick = next(c for c in res.candidates if c["selected"])
+    ts_one = refine_saddle(calc, res.neb_path[pick["index"]], z,
+                           cfg_b.saddle, device="cuda")
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t1
+    jc.reset_launches()
+    ends = (res.reactant_coords - res.product_coords).cpu().numpy()
+    out = put("b_flagship_on_a_mesh", {
+        "config": "tests/test_flagship_autots.py on SQM2 f64, 2 shards, "
+                  f"saddle refinement {mp.FLAGSHIP_SADDLE_STEPS} steps",
+        "shards": mp.PAIR_SHARDS,
+        "images_per_shard": len(res.neb_energies) // mp.PAIR_SHARDS,
+        "run_s": run_s, "stage_s": stage_s,
+        "stage_seconds": res.stage_seconds,
+        "unsharded_stage_seconds": full_res.stage_seconds,
+        "ts_energy": res.ts_energy,
+        "unsharded_ts_energy": full_res.ts_energy,
+        "ts_energy_minus_unsharded_flagship": res.ts_energy
+        - full_res.ts_energy,
+        "band_max_abs_e_diff_vs_unsharded_band": float(np.abs(
+            np.asarray(res.neb_energies)
+            - band_one.energies.cpu().numpy()).max()),
+        "band_max_abs_x_diff_vs_unsharded_band": float(
+            (res.neb_path - band_one.path).abs().max()),
+        "ts_energy_minus_unsharded_refinement": res.ts_energy
+        - float(ts_one.energy),
+        "unsharded_checks_s": check_s,
+        "n_imaginary": res.n_imaginary,
+        "barrier_forward": res.barrier_forward,
+        "barrier_backward": res.barrier_backward,
+        "endpoints_rms_bohr": float(np.sqrt(np.mean(ends ** 2))),
+        "candidates": [{k: c[k] for k in ("index", "energy", "n_imaginary",
+                                          "converged")}
+                       for c in res.candidates],
+        "unsharded_candidates": [{k: c[k] for k in ("index", "energy",
+                                                    "n_imaginary",
+                                                    "converged")}
+                                 for c in full_res.candidates],
+        "neb_energies": np.asarray(res.neb_energies).tolist()})
+    gate(res.n_imaginary == 1 and res.barrier_forward > 0
+         and res.barrier_backward > 0 and out["endpoints_rms_bohr"] > 0.1,
+         "(b) one imaginary mode, two distinct endpoints below the TS", out)
+    # the band without redistribution ends at another saddle than the
+    # unsharded flagship's, whose band redistributes every 25 iterations
+    # (PERF.md; ROADMAP Queue 3, F11): the TS is held to the
+    # unsharded run of the same band and refinement, and its gap to the
+    # flagship's TS is printed
+    gate(out["band_max_abs_e_diff_vs_unsharded_band"] <= 1e-10
+         and out["band_max_abs_x_diff_vs_unsharded_band"] <= 1e-9,
+         "(b) the sharded band against the same band unsharded", out)
+    gate(abs(out["ts_energy_minus_unsharded_refinement"]) <= 1e-6,
+         "(b) the TS against the unsharded refinement", out)
+
+    # (a) -aneb 1 5 through aneb_sharded on (b)'s band, whose maxima the
+    # insertion densifies (the flagship's initial band falls from its
+    # first image to its last: no interior maximum to grow around)
+    jc.reset_launches()
+    run = mp.aneb_pair(calc, res.neb_path, z, "cuda", between=take)
+    energies = run.pop("energies")
+    out = put("a_aneb_sharded", run)
+    gate(run["same_shape"] and run["images_end"] % mp.SHARDS == 0
+         and run["images_end"] > run["images_start"]
+         and np.isfinite(energies).all(), "(a) -aneb 1 5 grew the band", out)
+    gate(run["max_abs_e_diff_vs_unsharded"] <= 1e-10
+         and run["max_abs_x_diff_vs_unsharded"] <= 1e-10,
+         "(a) aneb_sharded against one shard", out)
+
+    # (c) the ensembles, 4 shards
+    oc, z_oc = alkane_chain(mp.OCTANE_CARBONS)
+    jc.reset_launches()
+    run = mp.conf_pair(oc, z_oc, "cuda", between=take)
+    run.pop("kicked")
+    out = put("c_confsearch_n_octane", run)
+    gate(run["nonfinite"] == 0
+         and run["conformers"] == run["unsharded_conformers"]
+         and run["max_abs_e_diff_vs_unsharded"] <= 1e-10
+         and run["max_abs_x_diff_vs_unsharded"] <= 1e-8,
+         "(c) the conformer round against the unsharded one", out)
+    jc.reset_launches()
+    run = mp.rings_pair("cuda", between=take)
+    out = put("c_s8_rings", run)
+    gate(run["finite"] and run["energy_fell"]
+         and run["max_rel_e_diff_vs_blocks_alone"] <= 3e-5,
+         "(c) the rings against their blocks run alone", out)
+
+    # (d) GPNEB, the mapper's executor, optimize_batch, 2 shards
+    jc.reset_launches()
+    run = mp.gpneb_pair("cuda", between=take)
+    out = put("d_gpneb", run)
+    gate(run["max_abs_e_diff_vs_unsharded"] <= 1e-10
+         and run["max_abs_x_diff_vs_unsharded"] <= 1e-9,
+         "(d) gpneb against the unsharded run", out)
+    jc.reset_launches()
+    run = mp.afir_pair(da, z, "cuda", between=take)
+    out = put("d_mapper_afir_executor", run)
+    gate(run["finite"] and run["max_abs_x_diff_vs_unsharded"] <= 1e-10,
+         "(d) the executor against the unsharded one", out)
+    jc.reset_launches()
+    run = mp.lj_batch_run("cuda", between=take)
+    out = put("d_optimize_batch_lj", run)
+    gate(run["converged"] == 16 and run["max_rel_e_diff"] <= 1e-10,
+         "(d) optimize_batch against the unsharded run", out)
+
+    # every shape the sharded runs launched that no row holds yet, timed
+    phase_s = time.perf_counter() - t_phase
+    gen = torch.Generator().manual_seed(11)
+    tags = {"f32": torch.float32, "f64": torch.float64}
+    held = {(r["batch"], r["d"], "f" + r["dtype"][-2:], r["sweeps"])
+            for r in rows if "ms" in r}
+    for b, dd, tag, sw in sorted(seen_shapes):
+        if (b, dd, tag, sw) not in held:
+            rows.append(check_row(jc, gen, b, dd, tags[tag],
+                                  f"batch of {b} in mesh", card, sweeps=sw))
+    emit({"phase": "mesh_done", "seconds": phase_s,
+          "with_kernel_rows_s": time.perf_counter() - t_phase,
+          "kernel_launches": totals, "card": card})
+    return totals
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1893,7 +2174,7 @@ def main():
     rows = phase_kernel_check(jc, card)
     main_path = [phase_slice_a(jc, card), phase_slice_b(jc, card),
                  phase_autots(jc, card)[0]]
-    full_launches, full_res = phase_autots(jc, card, full=True)
+    full_launches, full_res, full_detail = phase_autots(jc, card, full=True)
     from multioptpy_tpu_torch.flagship import saddle_start
     main_path += [full_launches,
                   phase_methods(jc, card, saddle_start(full_res)),
@@ -1901,7 +2182,8 @@ def main():
                   phase_dynamics_and_double_ended(jc, card, full_res),
                   phase_workflows(jc, card, full_res, rows),
                   phase_optmain_surface(jc, card, full_res, rows),
-                  phase_cli_surface(jc, card, full_res, rows)]
+                  phase_cli_surface(jc, card, full_res, rows),
+                  phase_mesh(jc, card, full_res, full_detail, rows)]
 
     kernels = []
     for variant in jc.VARIANTS:

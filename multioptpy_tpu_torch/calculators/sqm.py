@@ -658,7 +658,7 @@ class SQM(Calculator):
         if kw.pop("tp_mesh", None) is not None:
             raise NotImplementedError(
                 "tensor-parallel SQM waits for the multi-device slice "
-                "(ROADMAP Queue 1 item 17)")
+                "(ROADMAP Queue 1 item 17c)")
         kw.pop("tp_axis", None)
         super().__init__(charge=charge, multiplicity=multiplicity,
                          device=device, **kw)

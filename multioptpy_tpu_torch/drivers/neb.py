@@ -21,8 +21,13 @@ the batched first-order engines with B = 1), and rfo (FIRE blended with a
 per-image RS-RFO on FSB/Bofill Hessians).
 
 Initial paths: linear and IDPP (Smidstrup et al., JCP 140 (2014) 214106).
-The sharded band (`neb_sharded`, `aneb_sharded`) belongs to ROADMAP Queue 1
-item 17.
+
+The sharded band (`neb_sharded_step`, `neb_sharded`, `aneb_sharded`) splits
+the image axis over a `parallel.Mesh`: each shard evaluates its contiguous
+block of images on its own device, takes the +-1 boundary images and
+energies from its ring neighbours by explicit copies (the wrap reproduces
+`torch.roll`), and the band clock's global reductions are sums of per-shard
+partial sums in shard order.
 """
 
 import dataclasses
@@ -37,6 +42,9 @@ from multioptpy_tpu_torch.device import (calc_device, on_device,
 from multioptpy_tpu_torch.interpolation import (linear_resample,
                                                 redistribute_path)
 from multioptpy_tpu_torch.ops import hosteval
+from multioptpy_tpu_torch.parallel.mesh import (ShardedTree, check_mesh,
+                                                ensemble_mesh, ordered_sum,
+                                                shard_calc, shard_tree)
 from multioptpy_tpu_torch.steppers.first_order import (FireState, cg_init,
                                                        cg_step, fire_init,
                                                        fire_step, lbfgs_init,
@@ -807,6 +815,325 @@ def neb_scan(calc, path0, z, config=NEBConfig(), bias_engine=None,
 
 
 # --------------------------------------------------------------------------
+# the sharded band: image axis over a mesh, +-1 halos by explicit copies
+# --------------------------------------------------------------------------
+
+_LBFGS_MEM = 8
+# halo variants exchange only the +-1 neighbours; the gather variants
+# (whole-path force laws) evaluate neb_forces on the gathered band, whose
+# energies and gradients stay computed per shard
+_HALO = ("neb", "cineb", "bneb", "nesb")
+_GATHER = ("dneb", "lup", "om", "qsm2", "dmf", "ewbneb", "bneb2", "bneb3")
+
+
+class NEBState(NamedTuple):
+    """Whole-band state of the sharded step. coords, velocity, energies and
+    prev_grad carry the image axis first; the L-BFGS histories carry it
+    second (history index first, M = 0 under FIRE); the other fields are
+    scalars, the same on every shard."""
+    coords: torch.Tensor     # (I,N,3)
+    velocity: torch.Tensor   # (I,N,3) FIRE velocity; L-BFGS: the last move
+    dt: torch.Tensor
+    alpha: torch.Tensor
+    n_good: torch.Tensor     # int32
+    iteration: torch.Tensor  # int32
+    energies: torch.Tensor   # (I,) of the band the last step started from
+    fmax: torch.Tensor       # max |force| of the last step
+    s_hist: torch.Tensor     # (M,I,N,3)
+    y_hist: torch.Tensor     # (M,I,N,3)
+    rho: torch.Tensor        # (M,)
+    hist_len: torch.Tensor   # int32: pairs admitted so far
+    prev_grad: torch.Tensor  # (I,N,3) band gradient (-force) of last step
+
+
+# the split dimension of each NEBState field (None: the same on every
+# shard)
+NEB_LAYOUT = NEBState(coords=0, velocity=0, dt=None, alpha=None,
+                      n_good=None, iteration=None, energies=0, fmax=None,
+                      s_hist=1, y_hist=1, rho=None, hist_len=None,
+                      prev_grad=0)
+
+
+def neb_init(path0, z=None, calc=None, config=NEBConfig(), device=None):
+    """The initial NEBState of the band `path0` (energies are filled by the
+    first step). A tensor path keeps its device unless `device` is given;
+    anything else goes to `device` (None means the CUDA card)."""
+    del z, calc
+    if device is not None or not isinstance(path0, torch.Tensor):
+        path0 = on_device(path0, resolve_device(device))
+    path0 = path0.detach()
+    kind = dict(dtype=path0.dtype, device=path0.device)
+    m = _LBFGS_MEM if config.optimizer == "lbfgs" else 0
+    int0 = torch.tensor(0, dtype=torch.int32, device=path0.device)
+    return NEBState(
+        coords=path0, velocity=torch.zeros_like(path0),
+        dt=torch.tensor(config.dt0, **kind),
+        alpha=torch.tensor(0.1, **kind), n_good=int0, iteration=int0,
+        energies=torch.zeros(path0.shape[0], **kind),
+        fmax=torch.tensor(float("inf"), **kind),
+        s_hist=torch.zeros((m,) + tuple(path0.shape), **kind),
+        y_hist=torch.zeros((m,) + tuple(path0.shape), **kind),
+        rho=torch.zeros(m, **kind), hist_len=int0,
+        prev_grad=torch.zeros_like(path0))
+
+
+def shard_neb_state(state, mesh, axis="batch"):
+    """Split an NEBState over `mesh` along its image axis (NEB_LAYOUT);
+    the image count must divide the shard count."""
+    check_mesh(mesh, axis)
+    return shard_tree(state, mesh, NEB_LAYOUT)
+
+
+def _check_neb_shards(state, mesh):
+    if not (isinstance(state, ShardedTree) and state.mesh is mesh
+            and state.axes == NEB_LAYOUT):
+        raise ValueError("the sharded NEB step takes an NEBState or its "
+                         "shard_neb_state over the step's mesh")
+
+
+def _replicate(x, devices):
+    """A scalar computed on the first device, copied to every shard."""
+    return [x.to(dev) for dev in devices]
+
+
+def neb_sharded_step(calc, z, config=NEBConfig(), mesh=None, axis="batch",
+                     bias_engine=None):
+    """One NEB iteration with the image axis split over `mesh` (None: every
+    visible CUDA device): step(state) -> state, where state is an NEBState
+    (split here) or its `shard_neb_state`, and the result is the split
+    state. Each shard evaluates its contiguous block of images on its own
+    device. Halo variants (neb, cineb, bneb, nesb) build tangents and
+    springs from the ring neighbours' boundary images and energies; the
+    climbing image is the argmax of the energies gathered in shard order;
+    the gather variants evaluate `neb_forces` on the gathered band. The
+    FIRE or global L-BFGS clock's inner products are sums of per-shard
+    partial sums in shard order (the L-BFGS history stays split along the
+    image axis), `fmax` the max over shards; the scalars are computed once
+    and copied to every shard. Matches `make_neb_step` on one device."""
+    if config.variant not in _HALO + _GATHER:
+        raise ValueError("neb_sharded_step supports variants "
+                         f"{'/'.join(_HALO + _GATHER)}")
+    if config.optimizer not in ("fire", "lbfgs"):
+        raise ValueError("neb_sharded_step supports the fire and lbfgs "
+                         "optimizers")
+    mesh = ensemble_mesh(axis=axis) if mesh is None else mesh
+    check_mesh(mesh, axis)
+    devs = list(mesh.devices)
+    home = devs[0]
+    n_dev = len(devs)
+    calcs = [shard_calc(calc, dev) for dev in devs]
+
+    def psum(parts):
+        return ordered_sum(parts, home)
+
+    def forces_of(shards, e_l, g_l):
+        m = shards[0].coords.shape[0]
+        n_images = n_dev * m
+        x_l = [s.coords for s in shards]
+        if config.variant in _GATHER:
+            x_full = torch.cat([x.to(home) for x in x_l])
+            e_full = torch.cat([e.to(home) for e in e_l])
+            g_full = torch.cat([g.to(home) for g in g_l])
+            f_full = neb_forces(x_full, e_full, g_full, config.k_spring,
+                                config.variant, False,
+                                config.optimize_endpoints, config.dmf_beta,
+                                config.dmf_nsegs)
+            return [f_full[d * m:(d + 1) * m].to(dev)
+                    for d, dev in enumerate(devs)]
+        e_full = torch.cat([e.to(home) for e in e_l])
+        idx = torch.arange(n_images, device=home)
+        interior = (idx > 0) & (idx < n_images - 1)
+        ci_idx = torch.argmax(torch.where(interior, e_full, -torch.inf))
+        climbing = ((shards[0].iteration + 1 >= config.climbing_start)
+                    & (config.variant == "cineb"))
+        out = []
+        for d, dev in enumerate(devs):
+            nxt, prv = (d + 1) % n_dev, (d - 1) % n_dev
+            x, e, g = x_l[d], e_l[d], g_l[d]
+            x_prev = torch.cat([x_l[prv][-1:].to(dev), x[:-1]])
+            x_next = torch.cat([x[1:], x_l[nxt][:1].to(dev)])
+            e_prev = torch.cat([e_l[prv][-1:].to(dev), e[:-1]])
+            e_next = torch.cat([e[1:], e_l[nxt][:1].to(dev)])
+            tau = _tangents_from_halo(x, x_prev, x_next, e, e_prev, e_next)
+            g_par = _image_dot(g, tau) * tau
+            if config.variant in ("bneb", "nesb"):
+                t_atom = _per_atom_tangents_from_halo(x, x_prev, x_next, e,
+                                                      e_prev, e_next)
+                force = -(g - (g * t_atom).sum(-1, keepdim=True) * t_atom)
+                if config.variant == "nesb":
+                    dp = torch.sqrt(((x_next - x) ** 2).sum(-1, keepdim=True)
+                                    + 1e-14)
+                    dm = torch.sqrt(((x - x_prev) ** 2).sum(-1, keepdim=True)
+                                    + 1e-14)
+                    force = force + config.k_spring * (dp - dm) * t_atom
+            else:
+                dp = torch.sqrt(_image_dot(x_next - x, x_next - x) + 1e-14)
+                dm = torch.sqrt(_image_dot(x - x_prev, x - x_prev) + 1e-14)
+                force = -(g - g_par) + config.k_spring * (dp - dm) * tau
+            gidx = d * m + torch.arange(m, device=dev)
+            is_ci = ((gidx == ci_idx.to(dev)) & climbing.to(dev))[:, None,
+                                                                  None]
+            force = torch.where(is_ci, -g + 2.0 * g_par, force)
+            is_end = ((gidx == 0) | (gidx == n_images - 1))[:, None, None]
+            end_force = -g if config.optimize_endpoints else \
+                torch.zeros_like(g)
+            out.append(torch.where(is_end, end_force, force))
+        return out
+
+    def fire_clock(shards, f_l):
+        s0 = shards[0]
+        v_l = [s.velocity for s in shards]
+        power = psum([(v * f).sum() for v, f in zip(v_l, f_l)])
+        vnorm = torch.sqrt(psum([(v * v).sum() for v in v_l]))
+        fnorm = torch.sqrt(psum([(f * f).sum() for f in f_l]))
+        downhill = power > 0.0
+        accelerate = downhill & (s0.n_good > 5)
+        dt = torch.where(downhill,
+                         torch.where(accelerate,
+                                     torch.clamp(s0.dt * 1.10,
+                                                 max=config.dt_max),
+                                     s0.dt),
+                         s0.dt * 0.50)
+        alpha = torch.where(downhill,
+                            torch.where(accelerate, s0.alpha * 0.99,
+                                        s0.alpha),
+                            torch.full_like(s0.alpha, 0.1))
+        n_good = torch.where(downhill, s0.n_good + 1, 0).to(torch.int32)
+        mvs, vs = [], []
+        for dev, v, f in zip(devs, v_l, f_l):
+            a, vn, fn_ = (t.to(dev) for t in (s0.alpha, vnorm, fnorm))
+            v_mix = (1.0 - a) * v + a * vn * f / (fn_ + 1e-8)
+            v_new = torch.where(downhill.to(dev), v_mix, 0.0) \
+                + dt.to(dev) * f
+            vs.append(v_new)
+            mvs.append(dt.to(dev) * v_new)
+        return mvs, vs, dict(dt=dt, alpha=alpha, n_good=n_good)
+
+    def lbfgs_clock(shards, f_l):
+        s0 = shards[0]
+        m_mem = s0.rho.shape[0]
+        g_l = [-f for f in f_l]
+        s_vec = [s.velocity for s in shards]
+        y_vec = [g - s.prev_grad for g, s in zip(g_l, shards)]
+        sy = psum([(a * b).sum() for a, b in zip(s_vec, y_vec)])
+        initialized = s0.iteration > 0
+        admit = initialized & (sy.abs() > 1e-12)
+        ks = torch.arange(m_mem, device=home)
+        put = (ks == s0.hist_len % m_mem) & admit
+        rho = torch.where(put, 1.0 / torch.where(sy.abs() > 1e-12, sy, 1.0),
+                          s0.rho)
+        s_hist, y_hist = [], []
+        for dev, s, sv, yv in zip(devs, shards, s_vec, y_vec):
+            p = put.to(dev)[:, None, None, None]
+            s_hist.append(torch.where(p, sv[None], s.s_hist))
+            y_hist.append(torch.where(p, yv[None], s.y_hist))
+        count = torch.where(admit, s0.hist_len + 1, s0.hist_len).to(
+            torch.int32)
+        n_avail = torch.clamp(count, max=m_mem)
+        slots = (count - 1 - ks) % m_mem            # newest first
+        mask = ks < n_avail
+
+        def gdot(a_l, b_l):
+            return psum([(a * b).sum() for a, b in zip(a_l, b_l)])
+
+        def hist(h_l, i):
+            return [h[i.to(h.device)] for h in h_l]
+
+        q = g_l
+        alphas = []
+        for k in range(m_mem):
+            i = slots[k]
+            a = torch.where(mask[k], rho[i] * gdot(hist(s_hist, i), q), 0.0)
+            q = [qq - a.to(qq.device) * y
+                 for qq, y in zip(q, hist(y_hist, i))]
+            alphas.append(a)
+        last = (count - 1) % m_mem
+        y_last = hist(y_hist, last)
+        yy = gdot(y_last, y_last)
+        gamma = torch.where((n_avail > 0) & (yy > 1e-12),
+                            (1.0 / torch.clamp(rho[last], min=1e-30))
+                            / torch.clamp(yy, min=1e-30), 1.0)
+        gamma = torch.clamp(gamma, 1e-3, 1e3)
+        r = [gamma.to(qq.device) * qq for qq in q]
+        for k in reversed(range(m_mem)):
+            i = slots[k]
+            b = rho[i] * gdot(hist(y_hist, i), r)
+            coef = torch.where(mask[k], alphas[k] - b, 0.0)
+            r = [rr + coef.to(rr.device) * s
+                 for rr, s in zip(r, hist(s_hist, i))]
+        mvs = [-config.sd_step * torch.where(initialized.to(rr.device), rr, g)
+               for rr, g in zip(r, g_l)]
+        return mvs, s_hist, y_hist, dict(rho=rho, hist_len=count)
+
+    def step(state):
+        if isinstance(state, NEBState):
+            state = shard_neb_state(state, mesh, axis)
+        _check_neb_shards(state, mesh)
+        shards = state.shards
+        e_l, g_l = [], []
+        for c, s in zip(calcs, shards):
+            e, g = hosteval.energy_and_gradient(c, s.coords, z, bias_engine)
+            e_l.append(e)
+            g_l.append(g)
+        f_l = forces_of(shards, e_l, g_l)
+        s0 = shards[0]
+        if config.optimizer == "lbfgs":
+            mvs, s_hist, y_hist, scal = lbfgs_clock(shards, f_l)
+            scal.update(dt=s0.dt, alpha=s0.alpha, n_good=s0.n_good)
+        else:
+            mvs, vs, scal = fire_clock(shards, f_l)
+            s_hist = [s.s_hist for s in shards]
+            y_hist = [s.y_hist for s in shards]
+            scal.update(rho=s0.rho, hist_len=s0.hist_len)
+        mvs = [mv * torch.clamp(config.max_move
+                                / torch.sqrt(_image_dot(mv, mv) + 1e-30),
+                                max=1.0) for mv in mvs]
+        if config.optimizer == "lbfgs":
+            vs = mvs     # the applied (clamped) move is the next s-vector
+        scal["fmax"] = torch.stack([f.abs().amax().to(home)
+                                    for f in f_l]).amax()
+        scal["iteration"] = s0.iteration + 1
+        copies = {k: _replicate(v, devs) for k, v in scal.items()}
+        out = tuple(
+            NEBState(coords=s.coords + mvs[d], velocity=vs[d],
+                     energies=e_l[d], s_hist=s_hist[d], y_hist=y_hist[d],
+                     prev_grad=-f_l[d],
+                     **{k: copies[k][d] for k in copies})
+            for d, s in enumerate(shards))
+        return ShardedTree(out, NEB_LAYOUT, mesh)
+
+    return step
+
+
+def neb_sharded(calc, path0, z, config=NEBConfig(), mesh=None, axis="batch",
+                bias_engine=None, device=None):
+    """`config.n_steps` fixed iterations of `neb_sharded_step`, with no
+    early exit and no redistribution; the band and its energies are
+    gathered on the mesh's first device (which `device`, if given, must
+    be, and `calc` must live on)."""
+    from multioptpy_tpu_torch.parallel.mesh import mesh_device
+
+    mesh = ensemble_mesh(axis=axis) if mesh is None else mesh
+    home = mesh_device(mesh, device)
+    calc_device(calc, home, "the band")
+    step = neb_sharded_step(calc, z, config, mesh, axis, bias_engine)
+    state = shard_neb_state(neb_init(path0, config=config, device=home),
+                            mesh, axis)
+    e_hist, fmax = [], None
+    for _ in range(config.n_steps):
+        state = step(state)
+        e_hist.append(torch.cat([s.energies.to(home)
+                                 for s in state.shards]))
+        fmax = state.shards[0].fmax
+    final = state.gather()
+    e_hist = torch.stack(e_hist).cpu().numpy() if e_hist else \
+        np.zeros((0, final.coords.shape[0]))
+    return _result(final.coords, final.energies,
+                   fmax is not None and float(fmax) < config.fmax,
+                   config.n_steps, e_hist)
+
+
+# --------------------------------------------------------------------------
 # adaptive bands
 # --------------------------------------------------------------------------
 
@@ -893,4 +1220,47 @@ def aneb(calc, path0, z, config=NEBConfig(), bias_engine=None,
             path = res.path
             continue
         path = torch.as_tensor(grown, device=dev)
+    return res
+
+
+def aneb_sharded(calc, path0, z, config=NEBConfig(), bias_engine=None,
+                 interpolation_num=1, frequency=5, max_images=64,
+                 mesh=None, axis="batch", round_to=None, device=None):
+    """`aneb` with every fixed-size segment through `neb_sharded`: the
+    insertion is a host step between segments, and each grown band is
+    arc-length resampled up to the next multiple of the shard count (or of
+    `round_to`, if larger), so that it divides over the mesh."""
+    from multioptpy_tpu_torch.parallel.mesh import mesh_device
+
+    mesh = ensemble_mesh(axis=axis) if mesh is None else mesh
+    home = mesh_device(mesh, device)
+    n_dev = int(check_mesh(mesh, axis).shape[axis])
+    # `round_to` pins the rounding independently of the mesh size
+    mult = max(int(round_to) if round_to else n_dev, n_dev)
+
+    def to_multiple(p):
+        n = p.shape[0]
+        target = max(-(-n // mult) * mult, mult)
+        return p if target == n else linear_resample(p, target)
+
+    path = to_multiple(on_device(path0, home))
+    res = None
+    steps_done = 0
+    while steps_done < config.n_steps:
+        seg = min(frequency, config.n_steps - steps_done)
+        seg_cfg = dataclasses.replace(
+            config, n_steps=seg,
+            climbing_start=max(0, config.climbing_start - steps_done))
+        res = neb_sharded(calc, path, z, seg_cfg, mesh=mesh, axis=axis,
+                          bias_engine=bias_engine, device=home)
+        steps_done += int(res.n_iterations)
+        if res.converged or steps_done >= config.n_steps:
+            break
+        grown = aneb_insert(res.path.detach().cpu().numpy(),
+                            res.energies.detach().cpu().numpy(),
+                            interpolation_num)
+        if len(grown) == len(res.path) or len(grown) > max_images:
+            path = res.path
+            continue
+        path = to_multiple(torch.as_tensor(grown, device=home))
     return res

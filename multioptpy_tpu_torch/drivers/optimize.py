@@ -954,12 +954,23 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
 
 def optimize_batch(calc, coords_batch, z, bias_engine=None,
                    config=OptimizeConfig(), n_steps=None, hessian0=None,
-                   device=None):
+                   device=None, mesh=None):
     """Batched optimization: `n_steps` steps of the whole batch (B,N,3) in
     lockstep, converged members frozen, any method. `device` as in
-    `optimize`."""
-    dev = calc_device(calc, device, "the optimization")
+    `optimize`.
+
+    `mesh` (a `parallel.Mesh`) splits the batch over its shards: each
+    shard's block advances through its own step on its own device, and the
+    result is gathered in shard order on the mesh's first device, which
+    `device`, if given, must be and `calc` must live on. `coords_batch`
+    may come already split (a `ShardedTree`). A batch that does not divide
+    runs whole on every shard, as the reference's replicated layout does."""
     n_steps = int(n_steps if n_steps is not None else config.nsteps)
+    if mesh is not None:
+        return _optimize_batch_sharded(calc, coords_batch, z, bias_engine,
+                                       config, n_steps, hessian0, device,
+                                       mesh)
+    dev = calc_device(calc, device, "the optimization")
     x = on_device(coords_batch, dev)
     h0 = None if hessian0 is None else torch.as_tensor(
         hessian0, dtype=x.dtype, device=dev)
@@ -974,4 +985,44 @@ def optimize_batch(calc, coords_batch, z, bias_engine=None,
     return OptResult(
         coords=state.coords, energy=state.energy, gradient=state.gradient,
         converged=state.converged, n_iterations=n_steps,
+        energy_history=e_hist, coords_history=None)
+
+
+def _optimize_batch_sharded(calc, coords_batch, z, bias_engine, config,
+                            n_steps, hessian0, device, mesh):
+    """optimize_batch over the shards of `mesh`, in lockstep."""
+    from multioptpy_tpu_torch.parallel.mesh import (ShardedTree, map_shards,
+                                                    mesh_device, shard_batch,
+                                                    shard_calc)
+
+    home = mesh_device(mesh, device)
+    calc_device(calc, home, "the optimization")
+    if isinstance(coords_batch, ShardedTree):
+        if coords_batch.mesh is not mesh:
+            raise ValueError("coords_batch is split over another mesh")
+        x = coords_batch
+    else:
+        x = shard_batch(on_device(coords_batch, home), mesh,
+                        mesh.axis_names[0])
+    calcs = [shard_calc(calc, dev) for dev in mesh.devices]
+    steps = [make_step_fn(c, z, bias_engine, config) for c in calcs]
+
+    def init(i, dev, xs):
+        h0 = None if hessian0 is None else torch.as_tensor(
+            hessian0, dtype=xs.dtype, device=dev)
+        return init_state(xs, z, calcs[i], bias_engine, config, h0)
+
+    state = map_shards(init, x)
+    e_hist = []
+    for _ in range(n_steps):
+        state = map_shards(lambda i, dev, s: steps[i](s), state)
+        e_hist.append(state._replace(
+            shards=tuple(s.energy for s in state.shards),
+            axes=state.axes.energy).gather())
+    final = state.gather()
+    e_hist = (torch.stack(e_hist).cpu().numpy() if e_hist
+              else np.zeros((0, final.coords.shape[0])))
+    return OptResult(
+        coords=final.coords, energy=final.energy, gradient=final.gradient,
+        converged=final.converged, n_iterations=n_steps,
         energy_history=e_hist, coords_history=None)

@@ -5,8 +5,9 @@ RS-RFO relaxation (then the unbiased product relaxation), step 2 CI-NEB on
 the AFIR trajectory, step 3 saddle refinement of the top NEB maxima with
 exact Hessians and normal modes, step 4 LQA IRC and endpoint
 optimizations. Every stage runs on the calculator's device; geometries
-pass between stages as tensors. The sharded path (`mesh`) arrives with
-ROADMAP Queue 1 item 17.
+pass between stages as tensors. With a `mesh`, step 2 runs the band with
+its image axis split over the mesh (`neb_sharded`) and step 3 refines the
+candidates in parallel, split over the mesh (`sharded_optimize_batch`).
 
 Entry points:
   autots(...)            full pipeline from reactant (+ AFIR spec or an
@@ -25,10 +26,13 @@ from multioptpy_tpu_torch.analysis.vibrations import count_imaginary
 from multioptpy_tpu_torch.device import resolve_device
 from multioptpy_tpu_torch.drivers.irc import IRCConfig, IRCResult, irc
 from multioptpy_tpu_torch.drivers.neb import (NEBConfig, idpp_path,
-                                              interpolate_linear, neb)
+                                              interpolate_linear, neb,
+                                              neb_sharded)
 from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
 from multioptpy_tpu_torch.interpolation import linear_resample
 from multioptpy_tpu_torch.ops import hosteval
+from multioptpy_tpu_torch.parallel.mesh import (check_mesh, mesh_device,
+                                                sharded_optimize_batch)
 from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
 from multioptpy_tpu_torch.units import BOHR2ANGSTROM
 
@@ -117,6 +121,21 @@ def _select_candidate(refined):
     return refined[0]
 
 
+def mesh_images(n_images, n_dev):
+    """The band's image count on an `n_dev`-shard mesh: rounded up to a
+    multiple of `n_dev`, at least `n_dev`."""
+    return max(-(-n_images // n_dev) * n_dev, n_dev)
+
+
+def pad_candidates(candidates, n_dev):
+    """The saddle candidates padded with the last one up to a multiple of
+    `n_dev`, for the candidate-parallel refinement."""
+    pad = list(candidates)
+    while len(pad) % n_dev:
+        pad.append(candidates[-1])
+    return pad
+
+
 def _chunked_stages(config):
     """Every stage whose config leaves scan_chunk unset takes
     config.scan_chunk."""
@@ -145,11 +164,17 @@ def autots(calc, reactant, z, config=AutoTSConfig(), product_coords=None,
     counters that are read per stage: "step1_afir" with the AFIR result
     (`afir`, None when `product_coords` is given), "step2_neb" with the
     initial path and the NEB result (`path0`, `neb`), "step3_refine" and
-    "step4_irc" with none."""
+    "step4_irc" with none.
+
+    `mesh` (a `parallel.Mesh`): step 2 runs `neb_sharded` (the image count
+    rounded up to a multiple of the shard count; fixed iterations, no
+    redistribution), and step 3, when there is more than one candidate,
+    refines them in lockstep through `sharded_optimize_batch`, padded with
+    the last one up to a multiple of the shard count. Steps 1 and 4 run on
+    the mesh's first device, which `device`, if given, must be."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded AutoTS (mesh) arrives with ROADMAP Queue 1 item 17")
-    del mesh_axis
+        check_mesh(mesh, mesh_axis)
+        device = mesh_device(mesh, device)
     dev = resolve_device(device)
     t0 = time.perf_counter()
 
@@ -217,6 +242,8 @@ def autots(calc, reactant, z, config=AutoTSConfig(), product_coords=None,
         arc_ang = float(seg.sum()) * BOHR2ANGSTROM
         n_images = int(np.clip(round(arc_ang / config.node_distance_ang) + 1,
                                4, 64))
+    if mesh is not None:
+        n_images = mesh_images(n_images, int(mesh.shape[mesh_axis]))
     if use_traj:
         full = torch.cat([torch.as_tensor(afir_traj, dtype=reactant.dtype,
                                           device=dev),
@@ -226,9 +253,16 @@ def autots(calc, reactant, z, config=AutoTSConfig(), product_coords=None,
         path0 = idpp_path(reactant, product_coords, n_images)
     else:
         path0 = interpolate_linear(reactant, product_coords, n_images)
-    _vlog(f"step2: NEB ({path0.shape[0]} images x {path0.shape[1]} atoms)")
-    neb_res = neb(calc, path0, z, config.neb, bias_engine=bias_engine,
-                  device=dev)
+    _vlog(f"step2: NEB ({path0.shape[0]} images x {path0.shape[1]} atoms)"
+          + (f" sharded over {mesh.shape[mesh_axis]} devices"
+             if mesh is not None else ""))
+    if mesh is not None:
+        neb_res = neb_sharded(calc, path0, z, config.neb, mesh=mesh,
+                              axis=mesh_axis, bias_engine=bias_engine,
+                              device=dev)
+    else:
+        neb_res = neb(calc, path0, z, config.neb, bias_engine=bias_engine,
+                      device=dev)
     stage_done("step2_neb", path0=path0, neb=neb_res)
 
     # ---- step 3: refine the top-N NEB local maxima -------------------
@@ -240,21 +274,41 @@ def autots(calc, reactant, z, config=AutoTSConfig(), product_coords=None,
     maxima.sort(key=lambda i: e_path[i], reverse=True)
     candidates = maxima[:max(1, config.top_n_candidates)]
 
+    if mesh is not None and len(candidates) > 1:
+        # candidate-parallel refinement: the candidates advance in
+        # lockstep, split over the mesh
+        n_dev = int(mesh.shape[mesh_axis])
+        cand_pad = pad_candidates(candidates, n_dev)
+        guesses = torch.stack([neb_res.path[i] for i in cand_pad])
+        _vlog(f"step3: candidate-parallel saddle refinement "
+              f"x{len(cand_pad)} over {n_dev} devices")
+        final = sharded_optimize_batch(
+            calc, guesses, z, mesh=mesh, bias_engine=bias_engine,
+            config=config.saddle, n_steps=config.saddle.nsteps,
+            axis=mesh_axis)
+        triples = [(final.coords[k], float(final.energy[k]),
+                    bool(final.converged[k]), int(idx))
+                   for k, idx in enumerate(candidates)]
+    else:
+        triples = []
+        for idx in candidates:
+            _vlog(f"step3: saddle refinement of NEB image {idx}")
+            res3 = refine_saddle(calc, neb_res.path[idx], z, config.saddle,
+                                 bias_engine, device=dev)
+            triples.append((res3.coords, float(res3.energy),
+                            bool(res3.converged), int(idx)))
+
     refined = []   # (coords, energy, n_imag, hessian, converged, neb_idx)
-    for idx in candidates:
-        _vlog(f"step3: saddle refinement of NEB image {idx}")
-        res3 = refine_saddle(calc, neb_res.path[idx], z, config.saddle,
-                             bias_engine, device=dev)
+    for coords3, e3, conv3, idx in triples:
         _vlog("step3: exact Hessian + normal modes")
-        h, freqs = hosteval.hessian_and_modes(calc, res3.coords[None], z)
+        h, freqs = hosteval.hessian_and_modes(calc, coords3[None], z)
         ni = count_imaginary(freqs[0])
         # identical refined TSs collapse
-        c_np = res3.coords.cpu().numpy()
+        c_np = coords3.cpu().numpy()
         if any(np.sqrt(np.mean((c_np - r[0].cpu().numpy()) ** 2)) < 1e-3
                for r in refined):
             continue
-        refined.append((res3.coords, float(res3.energy), ni, h[0],
-                        bool(res3.converged), int(idx)))
+        refined.append((coords3, e3, ni, h[0], conv3, idx))
 
     pick = _select_candidate(refined)
     ts_coords, ts_energy, n_imag, h_ts = pick[:4]

@@ -12,8 +12,8 @@ Deduplication and the Boltzmann bookkeeping stay on the host.
 The FIRE state (velocity, power, time step) is carried per member: `dt` is
 a (B,) tensor and every select of the reference's `jnp.where` is a per-row
 select. Candidates with a non-finite coordinate are dropped, as in the
-reference, and counted (`n_nonfinite`). The sharded search (`mesh`)
-arrives with ROADMAP Queue 1 item 17.
+reference, and counted (`n_nonfinite`). With a `mesh` the kick and the
+relaxation run with the batch split over its shards.
 """
 
 import dataclasses
@@ -26,6 +26,8 @@ import torch
 from multioptpy_tpu_torch.device import calc_device, on_device
 from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize_batch
 from multioptpy_tpu_torch.geometry import bond_connectivity
+from multioptpy_tpu_torch.parallel.mesh import (map_shards, mesh_device,
+                                                shard_batch, shard_calc)
 from multioptpy_tpu_torch.potentials.afir import afir_alpha
 from multioptpy_tpu_torch.units import KB_HARTREE
 
@@ -151,15 +153,17 @@ def conformer_search(calc, coords, z, config=ConfSearchConfig(),
     npz path, loaded if it exists and written after every round.
 
     `device` (None means the CUDA card) must be where `calc` lives.
-    `stage_hook(name, **detail)`, if given, is called as each stage ends,
-    for counters and reruns read per stage: "seed" with the seed
+    `mesh` (a `parallel.Mesh`): the kick and the relaxation of every round
+    run with the batch split over its shards, each on its own device (the
+    seed relaxation stays on the mesh's first device, which `device`, if
+    given, must be). `stage_hook(name, **detail)`, if given, is called as
+    each stage ends, for counters and reruns read per stage: "seed" with the seed
     relaxation (`result`, None on a restart), then in each round "kick"
     (`round`, `seeds_idx`, `pairs`, `signs`, the kick's input `batch`, `w1`,
-    `w2`, `sign_t`, and `kicked`) and "relax" (`round`, `result`)."""
+    `w2`, `sign_t`, and `kicked`, gathered) and "relax" (`round`,
+    `result`)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded conformer search (mesh) arrives with ROADMAP "
-            "Queue 1 item 17")
+        device = mesh_device(mesh, device)
     dev = calc_device(calc, device, "the conformer search")
     hook = stage_hook or (lambda name, **detail: None)
     rng = np.random.default_rng(config.seed)
@@ -188,7 +192,11 @@ def conformer_search(calc, coords, z, config=ConfSearchConfig(),
     n_rejected = 0
     n_nonfinite = 0
 
-    kick = make_kick_relax(calc, z, config.base_gamma, config.kick_steps)
+    if mesh is None:
+        kick = make_kick_relax(calc, z, config.base_gamma, config.kick_steps)
+    else:
+        kicks = [make_kick_relax(shard_calc(calc, d), z, config.base_gamma,
+                                 config.kick_steps) for d in mesh.devices]
     kT = KB_HARTREE * config.temperature
 
     # AFIR pairs drawn from the target atoms only
@@ -230,13 +238,21 @@ def conformer_search(calc, coords, z, config=ConfSearchConfig(),
 
         kick_in = [torch.as_tensor(a, dtype=dtype, device=dev)
                    for a in (batch, w1, w2, signs)]
-        kicked = kick(*kick_in)
+        if mesh is None:
+            kicked = kick(*kick_in)
+            kicked_all = kicked
+        else:
+            kicked = map_shards(lambda i, d, sh: kicks[i](*sh),
+                                shard_batch(kick_in, mesh,
+                                            mesh.axis_names[0]))
+            kicked_all = kicked.gather()
         hook("kick", round=rnd, seeds_idx=seeds_idx, pairs=pairs,
              signs=signs, batch=kick_in[0], w1=kick_in[1], w2=kick_in[2],
-             sign_t=kick_in[3], kicked=kicked)
+             sign_t=kick_in[3], kicked=kicked_all)
 
         relaxed = optimize_batch(calc, kicked, z, config=config.opt,
-                                 n_steps=config.relax_steps, device=dev)
+                                 n_steps=config.relax_steps, device=dev,
+                                 mesh=mesh)
         hook("relax", round=rnd, result=relaxed)
         coords_b = relaxed.coords.cpu().numpy()
         e_b = relaxed.energy.cpu().numpy()

@@ -25,8 +25,9 @@ the AutoTS stack (AFIR scan -> NEB -> TS refine -> IRC) on the calculator's
 device. Where the reference skips a task whose AutoTS raises anything,
 `map_network` skips only the errors of a task that cannot be done
 (`TASK_ERRORS`), re-raises any error of the card or of the Jacobi kernel,
-and counts what it skipped (`Network.skipped`). The sharded executor
-(`mesh`) arrives with ROADMAP Queue 1 item 17.
+and counts what it skipped (`Network.skipped`). With a `mesh`, the batched
+AFIR executor splits its tasks over the mesh's shards when their count
+divides the shard count.
 """
 
 import dataclasses
@@ -43,6 +44,8 @@ import torch
 
 from multioptpy_tpu_torch.device import calc_device
 from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
+from multioptpy_tpu_torch.parallel.mesh import (map_shards, mesh_device,
+                                                shard_calc, shard_tree)
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1
 from multioptpy_tpu_torch.units import BOHR2ANGSTROM, KB_HARTREE
 from multioptpy_tpu_torch.workflows.autots import AutoTSConfig, autots
@@ -591,6 +594,22 @@ def make_afir_task_relax(calc, z, n_steps, record_every=5):
     return run
 
 
+def make_sharded_afir_task_relax(calc, z, n_steps, mesh, record_every=5):
+    """`make_afir_task_relax` with the tasks split over `mesh`: each
+    shard relaxes its block of tasks on its own device, and the products
+    and trajectories are gathered in shard order on the mesh's first
+    device. The task count must divide the shard count."""
+    execs = [make_afir_task_relax(shard_calc(calc, d), z, n_steps,
+                                  record_every) for d in mesh.devices]
+
+    def run(coords_b, w1_b, w2_b, gamma_b):
+        parts = shard_tree((coords_b, w1_b, w2_b, gamma_b), mesh,
+                           (0, 0, 0, 0))
+        return map_shards(lambda i, d, sh: execs[i](*sh), parts).gather()
+
+    return run
+
+
 def _make_queue(config):
     if config.queue == "boltzmann":
         return BoltzmannQueue(config.temperature_k, config.seed)
@@ -640,16 +659,18 @@ def map_network(calc, coords, z, config=MapperConfig(), resume=None,
     `device` (None means the CUDA card) must be where `calc` lives. A task
     whose stages raise one of `TASK_ERRORS` is skipped and counted in the
     returned network's `skipped` ({exception type: count}); an error of
-    the card or of the Jacobi kernel propagates. `stage_hook(name,
+    the card or of the Jacobi kernel propagates. `mesh` (a
+    `parallel.Mesh`): the batched AFIR executor's tasks are split over its
+    shards, each on its own device, when their count divides the shard
+    count (every other stage runs on the mesh's first device, which
+    `device`, if given, must be). `stage_hook(name,
     **detail)`, if given, is called after each batched AFIR step 1 as
     "afir_batch" with its inputs (`coords`, `w1`, `w2`, `gamma`) and
     outputs (`products`, `trajs`), and after each task's AutoTS as "task"
     with its `node_id`, `pair`, `gamma` and `n_imaginary` (a task whose TS
     has another count than one adds no edge)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded mapper executor (mesh) arrives with ROADMAP Queue 1 "
-            "item 17")
+        device = mesh_device(mesh, device)
     dev = calc_device(calc, device, "the mapper")
     z_np = np.asarray(z)
     z = z_np
@@ -731,6 +752,10 @@ def map_network(calc, coords, z, config=MapperConfig(), resume=None,
     persist()
     afir_exec = (make_afir_task_relax(calc, z, config.afir_steps)
                  if config.batch_size > 1 else None)
+    sharded_exec = None
+    if afir_exec is not None and mesh is not None:
+        sharded_exec = make_sharded_afir_task_relax(calc, z,
+                                                    config.afir_steps, mesh)
     n_atoms = len(z_np)
     explorations = 0
     while explorations < config.max_explorations:
@@ -773,7 +798,10 @@ def map_network(calc, coords, z, config=MapperConfig(), resume=None,
                 w2[k, t.pair[1]] = 1.0
                 gam[k] = t.gamma if t.gamma else config.afir_gamma
             inputs = [as_coords(a) for a in (cb, w1, w2, gam)]
-            products, trajs = afir_exec(*inputs)
+            if sharded_exec is not None and len(tasks) % mesh.size == 0:
+                products, trajs = sharded_exec(*inputs)
+            else:
+                products, trajs = afir_exec(*inputs)
             if stage_hook is not None:
                 stage_hook("afir_batch", coords=inputs[0], w1=inputs[1],
                            w2=inputs[2], gamma=inputs[3], products=products,

@@ -119,13 +119,14 @@ def test_v1_config_translation_matches_reference():
         _fields(ref_autots.autots_config_from_v1(extra)[0])
 
 
-def test_mesh_and_idpp_raise():
-    """The sharded AutoTS (mesh) still raises, naming item 17; an IDPP
-    initial path now runs, and its NEB stage starts from the reference's
-    IDPP band (a 3-atom system, where the pair potential has work to do)."""
+def test_non_mesh_refused_and_idpp_runs():
+    """A mesh that is not a port Mesh is refused (TypeError; the sharded
+    AutoTS is held in tests/test_torch_parallel.py); an IDPP initial path
+    runs, and its NEB stage starts from the reference's IDPP band (a
+    3-atom system, where the pair potential has work to do)."""
     calc = MullerBrown(device="cpu")
     r = np.array([[MB_MIN_A[0], MB_MIN_A[1], 0.0]])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+    with pytest.raises(TypeError, match="Mesh"):
         autots.autots(calc, r, [1], product_coords=r, mesh=object(),
                       device="cpu")
     from multioptpy_tpu.drivers import neb as ref_neb

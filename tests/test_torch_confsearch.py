@@ -114,7 +114,7 @@ def test_target_atoms_without_stochastic_seeds_match_reference():
             LennardJones(device="cpu"), torch.as_tensor(coords),
             np.full(5, 18), confsearch.ConfSearchConfig(
                 n_rounds=1, batch_size=2, target_atoms=(2,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="Mesh"):
         confsearch.conformer_search(
             LennardJones(device="cpu"), torch.as_tensor(coords),
             np.full(5, 18), mesh=object(), device="cpu")

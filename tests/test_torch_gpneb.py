@@ -74,12 +74,12 @@ def test_gpneb_on_an_ar5_band_matches_reference():
     _check(ref, got)
 
 
-def test_gpneb_converges_at_once_and_mesh_raises():
+def test_gpneb_converges_at_once_and_refuses_a_non_mesh():
     path = _line(_AR5_A, _AR5_B, 5)
     cfg = gpneb.GPNEBConfig(n_outer=2, fmax=1.0)
     got = gpneb.gpneb(LennardJones(device="cpu"), path, _AR, cfg,
                       device="cpu")
     assert got.converged and got.n_true_evaluations == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
+    with pytest.raises(TypeError, match="Mesh"):
         gpneb.gpneb(LennardJones(device="cpu"), path, _AR, cfg,
                     mesh=object(), device="cpu")

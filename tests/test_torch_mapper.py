@@ -258,7 +258,7 @@ def test_task_errors_are_narrowed(tmp_path, monkeypatch):
         dataclasses.replace(cfg, work_dir=str(tmp_path / "b")), device="cpu")
     assert net.skipped == {"ValueError": 2}
     assert len(net.nodes) == 1
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(TypeError, match="Mesh"):
         mapper.map_network(LennardJones(device="cpu"),
                            torch.as_tensor(_TRIMER), z, cfg, mesh=object(),
                            device="cpu")
