@@ -240,17 +240,35 @@ Phases, each printing one JSON line:
      Ha and 1e-8 Bohr; slice A's 256 rings (SQM f32) through
      sharded_optimize_batch for 10 steps, 4 shards of 64 (K1 at 64x24,
      64x32 and 3072x32 f32), every step held to 3e-5 of |E| (slice A's f32
-     bound) of the same 64-ring blocks run unsharded one by one; the gap
-     of each step to the unsharded run of all 256 printed (an f32 step on
-     the card depends on the batch it runs in: ROADMAP Queue 3, F12). (d)
+     bound) of the same 64-ring blocks run unsharded one by one and of the
+     unsharded run of all 256. The F12 check before it (ROADMAP Queue 3):
+     the step paths' matrix-vector product (device.bmv) on one member and
+     on 64 equal to the same members of a batch of 256, to the bit, at
+     D = 24, 32 (f32), 54, 72, 104 (f64), beside `a @ x[..., None]`'s gaps;
+     slice A's initial state and 3 steps, tensor by tensor, for the first
+     64 rings and for the first ring alone against the 256 (the 64 to the
+     bit); one step op by op (a dispatch mode) for 64, 16 and 1 ring from
+     the same state: no op may differ for 64 or 16, and the first ops that
+     differ for the ring alone are printed with their call sites. (d)
      2 shards: GPNEB on the Muller-Brown band of 4 images (1e-10 Ha, 1e-9
      Bohr), the mapper's batched AFIR executor on two Diels-Alder tasks,
      one a shard (1e-10 Bohr), optimize_batch on tests/test_parallel.py's
-     LJ batch (rtol 1e-10). Each run prints its shards, members per shard,
-     wall s, ms per step or iteration beside the unsharded run's and their
-     ratio, its K1 launches by shape and its gaps; the launches counted
-     are the sharded runs'. Timed kernel_check rows follow for every shape
-     the phase launched that no timed row holds yet.
+     LJ batch (rtol 1e-10). (e) The tensor-parallel SQM2 gradient (f64,
+     tp_energy_and_gradient; meshes of cuda:0 on the axis "tp"): the
+     98-atom C32H66 (alkane_chain(32), band 392: torch.linalg.eigh through
+     jacobi_eigh_auto) on 1, 2 and 4 shards (rows 98; 49+49; 25+25+24+24),
+     each held to the unsharded gradient on the card to 1e-12 Ha and 1e-12
+     Ha/Bohr, and the card's to the port's CPU result to 1e-9 Ha and 1e-8
+     Ha/Bohr; 5 rfo_fsb steps of it through `optimize` with
+     SQM2(tp_mesh=2 shards) from the default model Hessian (Lindh) against
+     the same steps unsharded (1e-10 Ha, 1e-9 Bohr: mesh_paths.TP_STEPS);
+     n-octane on 2 shards (13+13), whose 104-wide band launches K1 at
+     1x104 f64, held to 1e-12. Each run prints its shards, rows or members
+     per shard, wall s, ms per step, iteration or gradient beside the
+     unsharded run's and their ratio, its K1 launches by shape and its
+     gaps; the launches counted are the sharded runs'. Timed kernel_check
+     rows follow for every shape the phase launched that no timed row
+     holds yet.
 Slice A must launch the warp variant and slice B the block variant. The
 kernel_check rows time the wrapper and the kernel launch alone (padded
 input, no sort or gather) as the median of 3 groups of CUDA-event timings
@@ -1943,10 +1961,13 @@ def phase_mesh(jc, card, full_res, full_detail, rows):
     mesh; qsm2; NEB with L-BFGS; -aneb 1 5); (b) the full flagship AutoTS
     on 2 shards against the unsharded one of `phase_autots`; (c) a
     16-candidate n-octane conformer round and slice A's 256 rings through
-    sharded_optimize_batch, 4 shards; (d) GPNEB, the mapper's batched AFIR
-    executor and optimize_batch on 2 shards. The launches counted are the
-    sharded runs'; timed kernel_check rows follow for every shape they
-    launched that no row holds yet."""
+    sharded_optimize_batch, 4 shards, after the F12 check (a member's
+    step does not depend on its batch); (d) GPNEB, the mapper's batched
+    AFIR executor and optimize_batch on 2 shards; (e) the tensor-parallel
+    SQM2 gradient of C32H66 on 1, 2 and 4 shards, 5 rfo_fsb steps of it on
+    2, n-octane on 2. The launches counted are the sharded runs'; timed
+    kernel_check rows follow for every shape they launched that no row
+    holds yet."""
     import dataclasses
 
     from multioptpy_tpu_torch import mesh_paths as mp
@@ -2118,12 +2139,33 @@ def phase_mesh(jc, card, full_res, full_detail, rows):
          and run["max_abs_e_diff_vs_unsharded"] <= 1e-10
          and run["max_abs_x_diff_vs_unsharded"] <= 1e-8,
          "(c) the conformer round against the unsharded one", out)
+    # F12: the step paths' matrix-vector products and slice A's step
+    # path do not depend on the batch (ROADMAP Queue 3)
+    jc.reset_launches()
+    t0 = time.perf_counter()
+    probe = {"matvec": mp.batch_probe("cuda"),
+             "ring_step": mp.ring_step_probe("cuda", n_steps=3),
+             "ops": mp.op_probe("cuda")}
+    jc.reset_launches()
+    counted.clear()
+    out = put("c_f12_probe", {"seconds": time.perf_counter() - t0, **probe})
+    gate(all(max(row[f].values()) == 0.0 for row in probe["matvec"]
+             for f in ("bmv", "bmv_transposed")),
+         "(c) F12: bmv depends on its batch", out)
+    gate(all(gaps[0] == 0.0 for row in probe["ring_step"]
+             for key, gaps in row.items() if key != "step"),
+         "(c) F12: the first 64 rings' step path against the 256's", out)
+    gate(not probe["ops"][64]["first_differing"]
+         and not probe["ops"][16]["first_differing"],
+         "(c) F12: an op of the step depends on its batch", out)
     jc.reset_launches()
     run = mp.rings_pair("cuda", between=take)
     out = put("c_s8_rings", run)
     gate(run["finite"] and run["energy_fell"]
          and run["max_rel_e_diff_vs_blocks_alone"] <= 3e-5,
          "(c) the rings against their blocks run alone", out)
+    gate(max(run["max_rel_e_diff_vs_whole_batch_by_step"]) <= 3e-5,
+         "(c) the rings against the whole batch", out)
 
     # (d) GPNEB, the mapper's executor, optimize_batch, 2 shards
     jc.reset_launches()
@@ -2142,6 +2184,49 @@ def phase_mesh(jc, card, full_res, full_detail, rows):
     out = put("d_optimize_batch_lj", run)
     gate(run["converged"] == 16 and run["max_rel_e_diff"] <= 1e-10,
          "(d) optimize_batch against the unsharded run", out)
+
+    # (e) the tensor-parallel SQM2 gradient
+    jc.reset_launches()
+    run = mp.tp_gradient_runs("cuda", between=take)
+    card_g = run.pop("gradient")
+    run["band_route"] = ("torch.linalg.eigh (jacobi_eigh_auto: D = "
+                         f"{run['band']} > K1's f64 limit "
+                         f"{jc.max_dim(torch.float64)})")
+    extra = mp.tp_cpu_check(run["energy"], card_g)
+    out = put("e1_tp_c32h66", run, **extra)
+    gate(all(r["unsharded_after"] for r in run["runs"])
+         and [r["rows_per_shard"] for r in run["runs"]]
+         == [[98], [49, 49], [25, 25, 24, 24]]
+         and np.isfinite(card_g.numpy()).all(),
+         "(e1) ran on the shards asked for", out)
+    gate(all(r["abs_e_diff_vs_unsharded"] <= 1e-12
+             and r["max_abs_g_diff_vs_unsharded"] <= 1e-12
+             for r in run["runs"]),
+         "(e1) the sharded gradients against the unsharded one", out)
+    gate(extra["abs_e_diff_cpu_vs_card"] <= 1e-9
+         and extra["max_abs_g_diff_cpu_vs_card"] <= 1e-8,
+         "(e1) the card against the CPU", out)
+    gate(run["band"] > jc.max_dim(torch.float64)
+         and not any(d == run["band"] for _, d, _, _ in seen_shapes),
+         "(e1) the band went to torch.linalg.eigh", out)
+    jc.reset_launches()
+    run = mp.tp_optimize_pair("cuda", between=take)
+    energies = run.pop("energies")
+    out = put("e2_tp_optimize_c32h66", run)
+    gate(run["steps"] == run["unsharded_steps"] == mp.TP_STEPS
+         and np.isfinite(energies).all() and energies[-1] < energies[0],
+         "(e2) the steps ran", out)
+    gate(run["max_abs_e_diff_vs_unsharded"] <= 1e-10
+         and run["max_abs_x_diff_vs_unsharded"] <= 1e-9,
+         "(e2) the sharded steps against the unsharded ones", out)
+    jc.reset_launches()
+    run = mp.tp_octane_pair("cuda", between=take)
+    out = put("e3_tp_n_octane", run)
+    gate(out["k1_launches_by_shape"].get("1x104x104 f64 sweeps=9", 0) > 0,
+         "(e3) K1 launched at 1x104 f64 on the TP path", out)
+    gate(run["abs_e_diff_vs_unsharded"] <= 1e-12
+         and run["max_abs_g_diff_vs_unsharded"] <= 1e-12,
+         "(e3) the sharded gradient against the unsharded one", out)
 
     # every shape the sharded runs launched that no row holds yet, timed
     phase_s = time.perf_counter() - t_phase

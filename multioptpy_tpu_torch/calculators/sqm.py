@@ -21,10 +21,12 @@ import numpy as np
 import torch
 
 from multioptpy_tpu_torch.calculators.base import Calculator, register_calculator
+from multioptpy_tpu_torch.device import bmv
 from multioptpy_tpu_torch.hessian.dispersion import (
     D2_C6_JNM6, D2_VDW_ANG, D4_A1, D4_A2, D4_EN, D4_GA, D4_GC, D4_R4R2, D4_S6,
     D4_S8, d3_coordination_numbers, d4_energy)
 from multioptpy_tpu_torch.ops.eigh64 import eigh_solve, inv_sqrt_psd, seeded_eigh
+from multioptpy_tpu_torch.parallel.mesh import check_mesh, mesh_device
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1, UFF_VDW_R
 from multioptpy_tpu_torch.units import HARTREE2EV
 
@@ -331,14 +333,20 @@ def params_from_numpy(tables, device, dtype):
     return out
 
 
+# every atom row of a pair build (`_pair_geometry`, the overlap blocks)
+ALL_ROWS = slice(None)
+
+
 def _param_active(*vals):
     """False only when every value is a literal zero."""
     return any(not isinstance(v, (int, float)) or v != 0.0 for v in vals)
 
 
-def _pair_geometry(coords):
-    """(B,N,3) -> differences A - B (B,N,N,3) and squared distances."""
-    rij = coords[:, :, None, :] - coords[:, None, :, :]
+def _pair_geometry(coords, rows=ALL_ROWS):
+    """(B,N,3) -> differences A - B (B,R,N,3) and squared distances
+    (B,R,N) of the atom rows `rows` (a slice; every row by default)
+    against all N columns."""
+    rij = coords[:, rows, None, :] - coords[:, None, :, :]
     return rij, (rij * rij).sum(-1)
 
 
@@ -356,15 +364,15 @@ def _primitive_params(z):
     return alpha, cs, cp
 
 
-def _overlap_blocks(coords, alpha, cs, cp):
-    """All-pairs (B,N,N,4,4) overlap blocks over [s, px, py, pz] orbitals
-    with one exponent set per atom (the shared-exponent sp fast path).
-    alpha, cs, cp: (N,3) tensors."""
-    a_i = alpha[:, None, :, None]
+def _overlap_blocks(coords, alpha, cs, cp, rows=ALL_ROWS):
+    """(B,R,N,4,4) overlap blocks of the atom rows `rows` against all N
+    atoms over [s, px, py, pz] orbitals with one exponent set per atom (the
+    shared-exponent sp fast path). alpha, cs, cp: (N,3) tensors."""
+    a_i = alpha[rows, None, :, None]
     a_j = alpha[None, :, None, :]
     p_sum = a_i + a_j
     mu = a_i * a_j / p_sum
-    rij, r2 = _pair_geometry(coords)
+    rij, r2 = _pair_geometry(coords, rows)
     e0 = (math.pi / p_sum) ** 1.5 * torch.exp(-mu * r2[..., None, None])
     norm_s_i = (2.0 * a_i / math.pi) ** 0.75
     norm_s_j = (2.0 * a_j / math.pi) ** 0.75
@@ -372,8 +380,8 @@ def _overlap_blocks(coords, alpha, cs, cp):
     norm_p_j = norm_s_j * 2.0 * torch.sqrt(a_j)
     pa = (a_j / p_sum)[..., None] * (-rij[:, :, :, None, None, :])
     pb = (a_i / p_sum)[..., None] * (rij[:, :, :, None, None, :])
-    c_s_i, c_s_j = cs[:, None, :, None], cs[None, :, None, :]
-    c_p_i, c_p_j = cp[:, None, :, None], cp[None, :, None, :]
+    c_s_i, c_s_j = cs[rows, None, :, None], cs[None, :, None, :]
+    c_p_i, c_p_j = cp[rows, None, :, None], cp[None, :, None, :]
     s_ss = (c_s_i * c_s_j * norm_s_i * norm_s_j * e0).sum((-2, -1))
     s_sp = ((c_s_i * c_p_j * norm_s_i * norm_p_j * e0)[..., None]
             * pb).sum((-3, -2))
@@ -389,17 +397,18 @@ def _overlap_blocks(coords, alpha, cs, cp):
     return torch.cat([top, bottom], dim=-2)
 
 
-def _shell_pair_overlap(coords, a_a, c_a, l_a, a_b, c_b, l_b, c2s):
-    """(B,N,N,dimA,dimB) contracted overlaps between shell l_a on every atom
-    i (exponents a_a (N,3), normalized-primitive coeffs c_a (N,3)) and
-    shell l_b on every atom j. d blocks come out in the real-spherical basis
-    [z2, xz, yz, x2-y2, xy] through `c2s` (5, 6)."""
-    a_i = a_a[:, None, :, None]
+def _shell_pair_overlap(coords, a_a, c_a, l_a, a_b, c_b, l_b, c2s,
+                        rows=ALL_ROWS):
+    """(B,R,N,dimA,dimB) contracted overlaps between shell l_a on each
+    atom i of the rows `rows` (exponents a_a (N,3), normalized-primitive
+    coeffs c_a (N,3)) and shell l_b on every atom j. d blocks come out in
+    the real-spherical basis [z2, xz, yz, x2-y2, xy] through `c2s` (5, 6)."""
+    a_i = a_a[rows, None, :, None]
     a_j = a_b[None, :, None, :]
     p_sum = a_i + a_j
     u = 1.0 / (2.0 * p_sum)
     mu = a_i * a_j / p_sum
-    rij, r2 = _pair_geometry(coords)
+    rij, r2 = _pair_geometry(coords, rows)
     e0 = (math.pi / p_sum) ** 1.5 * torch.exp(-mu * r2[..., None, None])
     pa = (a_j / p_sum)[..., None] * (-rij[:, :, :, None, None, :])
     pb = (a_i / p_sum)[..., None] * (rij[:, :, :, None, None, :])
@@ -410,8 +419,8 @@ def _shell_pair_overlap(coords, a_a, c_a, l_a, a_b, c_b, l_b, c2s):
         return ((2.0 * a / math.pi) ** 0.75 * (4.0 * a) ** (0.5 * ll)
                 / np.sqrt(df))
 
-    cw = c_a[:, None, :, None] * c_b[None, :, None, :] * e0
-    rows = []
+    cw = c_a[rows, None, :, None] * c_b[None, :, None, :] * e0
+    mono_rows = []
     for ma in _MONO[l_a]:
         cols = []
         for mb in _MONO[l_b]:
@@ -421,8 +430,8 @@ def _shell_pair_overlap(coords, a_a, c_a, l_a, a_b, c_b, l_b, c2s):
                 if not isinstance(f, float):
                     val = val * f
             cols.append(val.sum((-2, -1)))
-        rows.append(torch.stack(cols, dim=-1))
-    blk = torch.stack(rows, dim=-2)
+        mono_rows.append(torch.stack(cols, dim=-1))
+    blk = torch.stack(mono_rows, dim=-2)
     if l_a == 2:
         blk = torch.einsum("st,bijtu->bijsu", c2s, blk)
     if l_b == 2:
@@ -451,18 +460,18 @@ def _basis_params(z_np, zeta_scale=(1.0, 1.0, 1.0)):
     return dict(a_s=a_s, c_s=cs, a_p=a_p, c_p=cp, a_d=a_d, c_d=cd)
 
 
-def _overlap_full(coords, prm, nob):
-    """All-pairs (B,N,N,nob,nob) overlap blocks over the per-shell basis;
-    nob = 4 ([s,p]) or 9 ([s,p,d])."""
+def _overlap_full(coords, prm, nob, rows=ALL_ROWS):
+    """(B,R,N,nob,nob) overlap blocks of the atom rows `rows` against all
+    N atoms over the per-shell basis; nob = 4 ([s,p]) or 9 ([s,p,d])."""
     shells = [(prm["a_s"], prm["c_s"], 0), (prm["a_p"], prm["c_p"], 1)]
     if nob == 9:
         shells.append((prm["a_d"], prm["c_d"], 2))
     c2s = prm["c2s_d"]
-    rows = [torch.cat([_shell_pair_overlap(coords, a_a, c_a, l_a,
-                                           a_b, c_b, l_b, c2s)
-                       for a_b, c_b, l_b in shells], dim=-1)
-            for a_a, c_a, l_a in shells]
-    return torch.cat(rows, dim=-2)
+    blocks = [torch.cat([_shell_pair_overlap(coords, a_a, c_a, l_a,
+                                             a_b, c_b, l_b, c2s, rows)
+                         for a_b, c_b, l_b in shells], dim=-1)
+              for a_a, c_a, l_a in shells]
+    return torch.cat(blocks, dim=-2)
 
 
 def _sqm_eigh(a, impl):
@@ -582,11 +591,11 @@ def _cg_raw(a, b):
     """Fixed-iteration CG on the normal equations (a (B,n,n), b (B,n)),
     3n iterations."""
     ata = a.mT @ a
-    atb = (a.mT @ b[..., None])[..., 0]
+    atb = bmv(a.mT, b)
     x = torch.zeros_like(b)
     r, p = atb, atb
     for _ in range(3 * a.shape[-1]):
-        ap = (ata @ p[..., None])[..., 0]
+        ap = bmv(ata, p)
         denom = (p * ap).sum(-1)
         rr = (r * r).sum(-1)
         ok = denom.abs() > 1e-300
@@ -655,11 +664,14 @@ class SQM(Calculator):
     def __init__(self, charge=0, multiplicity=1, kt=_FERMI_KT,
                  rep_k=_REP_K, rep_r0_scale=_REP_R0_SCALE, rep_hh=_REP_HH,
                  srb=False, device=None, **kw):
-        if kw.pop("tp_mesh", None) is not None:
-            raise NotImplementedError(
-                "tensor-parallel SQM waits for the multi-device slice "
-                "(ROADMAP Queue 1 item 17c)")
-        kw.pop("tp_axis", None)
+        # tensor-parallel hook: with a mesh set, every call builds the
+        # O(N^2) pair geometry and overlap blocks in row blocks, one per
+        # shard of `tp_axis` (`_tp_shard_rows`); the rest runs once, on the
+        # mesh's first device (parallel.mesh.tp_energy_and_gradient)
+        self.tp_mesh = kw.pop("tp_mesh", None)
+        self.tp_axis = str(kw.pop("tp_axis", "tp"))
+        if self.tp_mesh is not None:
+            check_mesh(self.tp_mesh, self.tp_axis)
         super().__init__(charge=charge, multiplicity=multiplicity,
                          device=device, **kw)
         self.kt = float(kt)
@@ -698,6 +710,27 @@ class SQM(Calculator):
         self.rep_hh_gem = kw.pop("rep_hh_gem", 0.0)
         self.h_d_shift = kw.pop("h_d_shift", 0.0)
         self._static_cache = {}
+
+    def _tp_shard_rows(self, build, coords):
+        """A pair build `build(x, rows)` -> (B, R, N, ...) of the atom rows
+        `rows` (a slice) against all N atoms, for every row of `coords`.
+        Without a mesh, one call. With `tp_mesh`, the N rows split into one
+        contiguous block per shard, the first N mod k one row longer
+        (torch.tensor_split); each block is built on its shard's device
+        from a copy of `coords`, copied to the mesh's first device (where
+        `coords` must lie) and concatenated along dim 1 in shard order.
+        Autograd sums each shard's gradient back into `coords`."""
+        if self.tp_mesh is None:
+            return build(coords, ALL_ROWS)
+        home = mesh_device(check_mesh(self.tp_mesh, self.tp_axis),
+                           coords.device)
+        sizes = [len(r) for r in torch.arange(coords.shape[1]).tensor_split(
+            self.tp_mesh.size)]
+        starts = np.cumsum([0] + sizes)
+        return torch.cat([build(coords.to(dev), slice(lo, hi)).to(home)
+                          for dev, lo, hi in zip(self.tp_mesh.devices,
+                                                 starts[:-1], starts[1:])],
+                         dim=1)
 
     def energy(self, coords, z):
         t = self.energy_terms(coords, z)
@@ -807,7 +840,8 @@ class SQM(Calculator):
         off = ~eye_nb
 
         # ---- EEQ electrostatics (first: the charges feed the D4 term) ----
-        _, r2 = _pair_geometry(coords)
+        r2 = self._tp_shard_rows(
+            lambda x, rows: _pair_geometry(x, rows)[1], coords)
         r = torch.sqrt(r2 + eye_n)
         chi, eta, r_q = prm["chi"], prm["eta"], prm["r_q"]
         gamma2 = r_q[:, None] ** 2 + r_q[None, :] ** 2
@@ -823,10 +857,13 @@ class SQM(Calculator):
                          coords.new_full((b, 1), float(self.charge))], -1)
         q = _sym_solve(big, rhs)[:, :n]
         e_eeq = (chi * q).sum(-1) + 0.5 * (
-            q * (a_mat @ q[..., None])[..., 0]).sum(-1)
+            q * bmv(a_mat, q)).sum(-1)
 
         # ---- overlap & Hamiltonian ----------------------------------------
-        s_blocks = _overlap_full(coords, prm, nob)       # (B,N,N,nob,nob)
+        s_blocks = self._tp_shard_rows(                  # (B,N,N,nob,nob)
+            lambda x, rows: _overlap_full(
+                x, self._static(z_np, x.device, dtype)[0], nob, rows),
+            coords)
         h_diag = prm["h_diag"]
         if nob == 9 and _param_active(self.h_d_shift):
             h_diag = h_diag + (self.h_d_shift / HARTREE2EV) * prm["d_mask"]

@@ -1,5 +1,6 @@
-"""Device selection shared by every entry point of the port, and the card
-timer its scripts share."""
+"""Device selection shared by every entry point of the port, the batched
+matrix-vector product of its step paths, and the card timer its scripts
+share."""
 
 import time
 
@@ -43,6 +44,37 @@ def on_device(x, dev):
     if isinstance(x, torch.Tensor):
         return x.detach().to(dev)
     return torch.as_tensor(np.asarray(x), device=dev)
+
+
+def bmv_reduce(a, x):
+    """`bmv`'s form on the card: (a * x) summed over the last axis of a
+    contiguous a."""
+    return (a.contiguous() * x[..., None, :]).sum(-1)
+
+
+def bmv(a, x):
+    """Batched matrix-vector product a @ x: (..., M, K) and (..., K) ->
+    (..., M), the one form of every step path's matrix-vector products, so
+    that a member's result does not depend on how many others share its
+    batch (ROADMAP Queue 3, F12).
+
+    On the card: an elementwise product summed over the last axis of a
+    contiguous a, whose reduction order is set by M and K alone (cuBLAS
+    picks its kernel for `a @ x[..., None]`, einsum or torch.bmm by the
+    batch count: 1.9e-6 apart in f32 between batches of 64 and 256). On
+    the CPU: torch.bmm over the flattened batch, a batch of one run as
+    two (a lone product takes another kernel), which gives every member
+    the bits the step paths had in batches before."""
+    if a.is_cuda:
+        return bmv_reduce(a, x)
+    shape = torch.broadcast_shapes(a.shape[:-2], x.shape[:-1])
+    m, k = a.shape[-2:]
+    a3 = a.expand(*shape, m, k).reshape(-1, m, k)
+    x3 = x.expand(*shape, k).reshape(-1, k, 1)
+    n = a3.shape[0]
+    if n == 1:
+        a3, x3 = a3.expand(2, m, k), x3.expand(2, k, 1)
+    return torch.bmm(a3, x3)[:n].reshape(*shape, m)
 
 
 def cuda_ms(fn, reps=None):

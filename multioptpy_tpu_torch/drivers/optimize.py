@@ -40,7 +40,7 @@ import torch
 
 from multioptpy_tpu_torch.coords.internals import (auto_internals,
                                                    detect_primitives)
-from multioptpy_tpu_torch.device import (calc_device, on_device,
+from multioptpy_tpu_torch.device import (bmv, calc_device, on_device,
                                          resolve_device)
 from multioptpy_tpu_torch.geometry import (judge_shape_condition,
                                            masses_from_z,
@@ -291,8 +291,8 @@ def init_state(coords, z, calc, bias_engine=None, config=OptimizeConfig(),
         # gradient and values
         q0 = internals.q_flat(coords.reshape(b, n3))
         b0 = internals.b_matrix(coords)
-        g_q0 = (internals.g_pinv(internals.g_matrix(b0))
-                @ (b0 @ g.reshape(b, n3, 1)))[..., 0]
+        g_q0 = bmv(internals.g_pinv(internals.g_matrix(b0)),
+                   bmv(b0, g.reshape(b, n3)))
         fo = fo + (_dic_diag_hessian(internals, dtype, dev).expand(
             b, -1, -1).clone(), g_q0, q0)
     if _is_mf(config.method):
@@ -440,7 +440,7 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
         b = coords.shape[0]
         q_now = ic.q_flat(coords.reshape(b, -1))
         bm = ic.b_matrix(coords)
-        g_q = (ic.g_pinv(ic.g_matrix(bm)) @ (bm @ g_flat[..., None]))[..., 0]
+        g_q = bmv(ic.g_pinv(ic.g_matrix(bm)), bmv(bm, g_flat))
         h_q, g_q_prev, q_prev = state.fo_state
         s_q = q_now - q_prev
         s_q = torch.where(ic.torsion_mask(coords.device),
@@ -456,13 +456,13 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
                         len(idx), -1, 3), coords[idx])))
 
         u, keep = ic.delocalized_basis(coords)
-        g_u = (u.mT @ g_q[..., None])[..., 0] * keep
+        g_u = bmv(u.mT, g_q) * keep
         h_u = u.mT @ h_q @ u
         h_u = 0.5 * (h_u + h_u.mT) + torch.diag_embed((~keep).to(g_flat.dtype))
         trust_new = new_trust(state)
         step_u, aux = rs_rfo_step(g_u, h_u, trust_new,
                                   saddle_order=saddle_order)
-        x_new = ic.to_cartesian(q_now + (u @ step_u[..., None])[..., 0],
+        x_new = ic.to_cartesian(q_now + bmv(u, step_u),
                                 coords)
         mv = (x_new - coords).reshape(b, -1)
         ok = (torch.isfinite(mv).all(-1)
@@ -537,10 +537,10 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
             # the step lifted back (SHAKE below restores the constraints)
             bj = constraints.jacobian(state.coords)           # (B, m, 3N)
             q = torch.linalg.svd(bj, full_matrices=True)[2][:, bj.shape[1]:]
-            step_r, aux = rs_rfo_step((q @ g_flat[..., None])[..., 0],
+            step_r, aux = rs_rfo_step(bmv(q, g_flat),
                                       q @ h_eff @ q.mT, trust_new,
                                       saddle_order=saddle_order)
-            step = (q.mT @ step_r[..., None])[..., 0]
+            step = bmv(q.mT, step_r)
         else:
             step, aux = rs_rfo_step(g_flat, h_eff, trust_new,
                                     saddle_order=saddle_order,

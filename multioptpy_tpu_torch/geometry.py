@@ -11,6 +11,7 @@ structure (N, 3), as the reference's do, or any leading batch axes.
 import numpy as np
 import torch
 
+from multioptpy_tpu_torch.device import bmv
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1, MASS_AMU
 
 _EPS = 1e-12
@@ -106,8 +107,8 @@ def _orthonormalize_masked(vectors):
     for i in range(k):
         v = vecs[:, i]
         prev = (torch.arange(k, device=vecs.device) < i).to(v.dtype)
-        coeffs = torch.einsum("bkd,bd->bk", vecs, v) * prev
-        v = v - torch.einsum("bk,bkd->bd", coeffs, vecs)
+        coeffs = bmv(vecs, v) * prev
+        v = v - bmv(vecs.mT, coeffs)
         norm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
         ok = norm > 1e-10
         vecs[:, i] = torch.where(ok, v / torch.where(ok, norm, 1.0), 0.0)
@@ -150,8 +151,7 @@ def project_gradient_tr_rot(gradient, coords):
     """Remove net translation/rotation components from (B,N,3) gradients."""
     basis = tr_rot_basis(coords)
     g = gradient.reshape(gradient.shape[0], -1)
-    g = g - torch.einsum("bkd,bk->bd", basis,
-                         torch.einsum("bkd,bd->bk", basis, g))
+    g = g - bmv(basis.mT, bmv(basis, g))
     return g.reshape(gradient.shape)
 
 

@@ -12,6 +12,8 @@ Double damping: arXiv:2006.08877. Flowchart: Theor Chem Acc 135, 84 (2016).
 
 import torch
 
+from multioptpy_tpu_torch.device import bmv
+
 _DENOM_EPS = 1e-10   # the reference's absolute guard
 _REL_EPS = 1e-12     # relative degeneracy threshold
 _TINY = 1e-300
@@ -29,10 +31,6 @@ def _norm(x):
     return torch.linalg.vector_norm(x, dim=-1)
 
 
-def _mv(h, x):
-    return (h @ x[..., None])[..., 0]
-
-
 def _m(cond):
     """(B,) condition -> (B,1,1) for matrix-valued selects."""
     return cond[..., None, None]
@@ -48,7 +46,7 @@ def _safe_div(num, den, scale):
 def bfgs_delta(h, s, y):
     """delta = y y^T/(y.s) - (H s)(H s)^T/(s.H s); zero as a whole if either
     denominator is degenerate."""
-    hs = _mv(h, s)
+    hs = bmv(h, s)
     sy = _dot(s, y)
     shs = _dot(s, hs)
     ok = ((sy.abs() >= _REL_EPS * _norm(s) * _norm(y) + _TINY)
@@ -64,12 +62,12 @@ def _sr1_delta_from_a(a, s):
 
 def sr1_delta(h, s, y):
     """delta = a a^T/(a.s), a = y - H s."""
-    return _sr1_delta_from_a(y - _mv(h, s), s)
+    return _sr1_delta_from_a(y - bmv(h, s), s)
 
 
 def psb_delta(h, s, y):
     """Powell symmetric Broyden."""
-    a = y - _mv(h, s)
+    a = y - bmv(h, s)
     ss = _dot(s, s)
     ok = ss >= _TINY
     ss_safe = _m(torch.where(ok, ss, 1.0))
@@ -92,7 +90,7 @@ def _bofill_const(a, s):
 
 def fsb_delta(h, s, y, cfd=False):
     """Farkas-Schlegel-Bofill: sqrt(phi^2)-weighted SR1/BFGS mix."""
-    a = (2.0 if cfd else 1.0) * (y - _mv(h, s))
+    a = (2.0 if cfd else 1.0) * (y - bmv(h, s))
     d_sr1 = _sr1_delta_from_a(a, s)
     d_bfgs = bfgs_delta(h, s, y)
     phi = _m(torch.sqrt(_bofill_const(a, s).clamp(0.0, 1.0)))
@@ -101,7 +99,7 @@ def fsb_delta(h, s, y, cfd=False):
 
 def bofill_delta(h, s, y, cfd=False):
     """Bofill: phi^2-weighted SR1/PSB mix."""
-    a = (2.0 if cfd else 1.0) * (y - _mv(h, s))
+    a = (2.0 if cfd else 1.0) * (y - bmv(h, s))
     d_sr1 = _sr1_delta_from_a(a, s)
     d_psb = psb_delta(h, s, y)
     c = _m(_bofill_const(a, s))
@@ -110,7 +108,7 @@ def bofill_delta(h, s, y, cfd=False):
 
 def msp_delta(h, s, y):
     """Murtagh-Sargent-Powell: sin^2-weighted SR1/PSB mix."""
-    a = y - _mv(h, s)
+    a = y - bmv(h, s)
     d_ms = _sr1_delta_from_a(a, s)
     d_p = psb_delta(h, s, y)
     den = _norm(a) * _norm(s)
@@ -122,7 +120,7 @@ def msp_delta(h, s, y):
 def flowchart_delta(h, s, y):
     """Auto-select SR1/BFGS/FSB per step, with the reference's
     z = y - H y convention."""
-    z = y - _mv(h, y)
+    z = y - bmv(h, y)
     zs = _safe_ratio(_dot(z, s), _norm(s) * _norm(z))
     ys = _safe_ratio(_dot(y, s), _norm(s) * _norm(y))
     d_sr1 = sr1_delta(h, s, y)

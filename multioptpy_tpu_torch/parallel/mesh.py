@@ -238,8 +238,25 @@ def sharded_optimize_batch(calc, coords_batch, z, mesh=None, bias_engine=None,
 
 
 def tp_energy_and_gradient(calc, coords, z, mesh=None, axis="tp"):
-    """The tensor-parallel SQM energy and gradient of one large molecule
-    (the reference row-shards the pair builds over `axis`)."""
-    raise NotImplementedError(
-        "the tensor-parallel SQM gradient (tp_energy_and_gradient) waits "
-        "for ROADMAP Queue 1 item 17c")
+    """The tensor-parallel SQM energy and gradient of ONE molecule (N, 3):
+    the calculator builds its O(N^2) pair geometry and overlap blocks in
+    row blocks, one per shard of `axis` (calculators/sqm.py
+    `_tp_shard_rows`), and runs everything after them (the EEQ solve, the
+    band eigensolve, repulsion, dispersion) once, on the mesh's first
+    device. Returns a 0-d energy and an (N, 3) gradient there. `mesh` None
+    takes every visible CUDA device. `calc` is sharded for this call only:
+    its previous `tp_mesh` and `tp_axis` come back afterwards."""
+    mesh = ensemble_mesh(axis=axis) if mesh is None else mesh
+    home = mesh_device(check_mesh(mesh, axis))
+    if calc.device != home:
+        raise ValueError(f"the calculator lives on {calc.device}, but the "
+                         f"mesh gathers on {home}")
+    x = coords if isinstance(coords, torch.Tensor) else torch.as_tensor(
+        np.asarray(coords), device=home)
+    prev = (getattr(calc, "tp_mesh", None), getattr(calc, "tp_axis", "tp"))
+    calc.tp_mesh, calc.tp_axis = mesh, axis
+    try:
+        e, g = calc.energy_and_gradient(x[None], z)
+    finally:
+        calc.tp_mesh, calc.tp_axis = prev
+    return e[0], g[0]

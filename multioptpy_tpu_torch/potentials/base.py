@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from multioptpy_tpu_torch.units import ANGSTROM2BOHR
+
 _CONSTANTS = {}
 
 
@@ -77,6 +79,11 @@ def _dihedral(p1, p2, p3, p4, eps=1e-12):
     x = (n1 * n2).sum(-1)
     y = (torch.linalg.cross(n1, n2, dim=-1) * b2n).sum(-1)
     return torch.atan2(y, x)
+
+
+def ang_to_bohr(x):
+    """Angstrom -> Bohr, as a float64 numpy array."""
+    return np.asarray(x, dtype=np.float64) * ANGSTROM2BOHR
 
 
 class BiasPotential:

@@ -11,15 +11,13 @@ reference's CPU branch.
 
 import torch
 
+from multioptpy_tpu_torch.device import bmv
 from multioptpy_tpu_torch.ops.eigh64 import eigh_fast
 
 
 def _norm(x):
     return torch.linalg.vector_norm(x, dim=-1)
 
-
-def _mv(m, x):
-    return (m @ x[..., None])[..., 0]
 
 
 def backtracking_linesearch(energy_fn, coords, move, e0, g0_flat,
@@ -47,7 +45,7 @@ def trim_step(gradient, hessian, trust_radius, saddle_order=0):
     are in the eigenbasis. gradient (B, D), hessian (B, D, D),
     trust_radius (B,)."""
     d, v = eigh_fast(0.5 * (hessian + hessian.mT))
-    g_t = _mv(v.mT, gradient)
+    g_t = bmv(v.mT, gradient)
     n = d.shape[-1]
     sign = torch.where(torch.arange(n, device=d.device) < saddle_order,
                        -1.0, 1.0).to(d.dtype)
@@ -72,7 +70,7 @@ def trim_step(gradient, hessian, trust_radius, saddle_order=0):
         lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
     use_newton = _norm(step_of(mu0)) <= trust_radius
     mu = torch.where(use_newton, mu0, 0.5 * (lo + hi))
-    return _mv(v, step_of(mu))
+    return bmv(v, step_of(mu))
 
 
 def componentwise_scaling(move, max_component):
@@ -92,7 +90,7 @@ def mode_following_direction(hessian, reference_mode=None, index=0):
     d, v = eigh_fast(0.5 * (hessian + hessian.mT))
     if reference_mode is None:
         return v[..., index], d[..., index]
-    i = _mv(v.mT, reference_mode).abs().argmax(-1)
+    i = bmv(v.mT, reference_mode).abs().argmax(-1)
     rows = torch.arange(d.shape[0], device=d.device)
     return v[rows, :, i], d[rows, i]
 
@@ -131,7 +129,7 @@ def geodesic_correct_move(move, coords, internals, n_rk4=16):
     gamma = 0.5 * (gamma + gamma.transpose(-1, -2))
 
     q = internals.q_flat(x0)
-    qd = _mv(b, move)
+    qd = bmv(b, move)
     dt = 1.0 / n_rk4
 
     def accel(v):
@@ -146,7 +144,7 @@ def geodesic_correct_move(move, coords, internals, n_rk4=16):
         qd = qd + dt / 6.0 * (k1v + 2 * k2v + 2 * k3v + k4v)
     x1 = internals.to_cartesian(q, coords).reshape(b_, 3 * n)
     p_range = b.mT @ (ginv @ b)                 # projector onto range(B^T)
-    corrected = (x1 - x0) + (move - _mv(p_range, move))
+    corrected = (x1 - x0) + (move - bmv(p_range, move))
     ok = (torch.isfinite(corrected).all(-1)
           & (_norm(corrected) < 3.0 * _norm(move) + 1e-12))
     return torch.where(ok[:, None], corrected, move)

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from multioptpy_tpu_torch.device import bmv
+
 _POLE_EPS = 1e-10          # mode participates in the image flip
 SMALL_EIGVAL_THRESH = 1e-6  # mode excluded from the step
 # sweeps the Jacobi routes add to `jacobi_sweeps_for(D)` for an f64 RS-RFO
@@ -180,7 +182,7 @@ def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
     d = torch.where(bad[:, None], 1.0, d)
     v = torch.where(bad[:, None, None], eye, v)
 
-    g_t = (v.mT @ gradient[..., None])[..., 0]
+    g_t = bmv(v.mT, gradient)
 
     # image flip of the first saddle_order non-singular modes
     participate = d.abs() > _POLE_EPS
@@ -193,7 +195,7 @@ def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
     valid = d.abs() >= SMALL_EIGVAL_THRESH
     step_t, lam = _rfo_step_grid(d_im, g_im, valid, trust_radius,
                                  alpha0, alpha_max)
-    step = (v @ step_t[..., None])[..., 0]
+    step = bmv(v, step_t)
 
     # final NaN guard -> trust-clipped steepest descent
     finite = torch.isfinite(step).all(-1)
@@ -204,7 +206,7 @@ def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
     step = torch.where(finite[:, None], step, sd)
 
     predicted = (gradient * step).sum(-1) + 0.5 * (
-        step * (hessian @ step[..., None])[..., 0]).sum(-1)
+        step * bmv(hessian, step)).sum(-1)
     return step, {"predicted_energy_change": predicted, "lambda": lam,
                   "step_norm": torch.linalg.vector_norm(step, dim=-1)}
 
@@ -262,7 +264,7 @@ def rs_prfo_step(gradient, hessian, trust_radius, saddle_order=1,
     bad = bad | ~(torch.isfinite(d).all(-1) & torch.isfinite(v).all((-2, -1)))
     d = torch.where(bad[:, None], 1.0, d)
     v = torch.where(bad[:, None, None], eye, v)
-    g_t = (v.mT @ gradient[..., None])[..., 0]
+    g_t = bmv(v.mT, gradient)
 
     rows = torch.arange(b, device=gradient.device)
     participate = d.abs() > _POLE_EPS
@@ -271,7 +273,7 @@ def rs_prfo_step(gradient, hessian, trust_radius, saddle_order=1,
         max_mask = participate & (rank <= saddle_order)
         followed = v[rows, :, max_mask.to(torch.int32).argmax(-1)]
     else:
-        ovl = (v.mT @ follow_vector[..., None])[..., 0]
+        ovl = bmv(v.mT, follow_vector)
         score = torch.where(participate, ovl.abs(), -math.inf)
         idx = score.argmax(-1)
         max_mask = torch.arange(dim, device=d.device) == idx[:, None]
@@ -300,7 +302,7 @@ def rs_prfo_step(gradient, hessian, trust_radius, saddle_order=1,
     lam_min = torch.where(restrict, lmin, lam_min0)
     lam_max = torch.where(restrict, lmax, lam_max0)
 
-    step = (v @ step_t[..., None])[..., 0]
+    step = bmv(v, step_t)
     finite = torch.isfinite(step).all(-1)
     sd = -gradient
     sd_n = torch.linalg.vector_norm(sd, dim=-1)
@@ -308,7 +310,7 @@ def rs_prfo_step(gradient, hessian, trust_radius, saddle_order=1,
                      sd * (trust_radius / sd_n.clamp(min=1e-30))[:, None], sd)
     step = torch.where(finite[:, None], step, sd)
     predicted = (gradient * step).sum(-1) + 0.5 * (
-        step * (hessian @ step[..., None])[..., 0]).sum(-1)
+        step * bmv(hessian, step)).sum(-1)
     return step, {"predicted_energy_change": predicted,
                   "lambda_min": lam_min, "lambda_max": lam_max,
                   "step_norm": torch.linalg.vector_norm(step, dim=-1),

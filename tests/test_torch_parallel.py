@@ -15,8 +15,16 @@ against the JAX package's single-device functions:
 - autots on the LJ trimer of __graft_entry__.py (8 images) and on
   Muller-Brown (8 images, two candidates refined in parallel) against the
   reference's autots on a one-device mesh: the band, the candidates, the
-  TS and the endpoints (1e-10 Ha, 1e-8 Bohr)."""
+  TS and the endpoints (1e-10 Ha, 1e-8 Bohr);
+- the tensor-parallel SQM2 gradient on "tp" meshes of the CPU: ethane,
+  propane (rows split 3+3+3+2) and the S8 crown (d shells) against the
+  reference's unsharded jitted SQM2 (1e-10 relative) and the port's
+  unsharded run (1e-12), rfo_fsb steps under SQM2(tp_mesh=...), and the
+  refusals."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +32,7 @@ import torch
 
 from multioptpy_tpu.calculators import LennardJones as RefLJ
 from multioptpy_tpu.calculators.model_surfaces import MullerBrown as RefMB
+from multioptpy_tpu.calculators.sqm import SQM2 as RefSQM2
 from multioptpy_tpu.drivers.irc import IRCConfig as RefIRCConfig
 from multioptpy_tpu.drivers.neb import NEBConfig as RefNEBConfig
 from multioptpy_tpu.drivers.optimize import OptimizeConfig as RefOptConfig
@@ -34,15 +43,17 @@ from multioptpy_tpu.workflows import autots as ref_autots
 from multioptpy_tpu.workflows import confsearch as ref_confsearch
 from multioptpy_tpu.workflows import mapper as ref_mapper
 from multioptpy_tpu.workflows.autots import AutoTSResult
+from multioptpy_tpu_torch.calculators import sqm as sqm_mod
 from multioptpy_tpu_torch.calculators.lj import LennardJones
 from multioptpy_tpu_torch.calculators.model_surfaces import (MB_MIN_A,
                                                              MB_MIN_C,
                                                              MullerBrown)
-from multioptpy_tpu_torch.calculators.sqm import SQM
+from multioptpy_tpu_torch.calculators.sqm import SQM2
 from multioptpy_tpu_torch.drivers.irc import IRCConfig
 from multioptpy_tpu_torch.drivers.neb import NEBConfig
-from multioptpy_tpu_torch.drivers.optimize import (OptimizeConfig,
+from multioptpy_tpu_torch.drivers.optimize import (OptimizeConfig, optimize,
                                                    optimize_batch)
+from multioptpy_tpu_torch.io.fixtures import alkane_chain, s8_crown
 from multioptpy_tpu_torch.parallel import (Mesh, ShardedTree, ensemble_mesh,
                                            shard_batch,
                                            sharded_optimize_batch,
@@ -134,11 +145,109 @@ def test_non_mesh_objects_are_refused():
                                mesh=object())
 
 
-def test_tensor_parallel_gradient_waits_for_17c():
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        tp_energy_and_gradient(None, None, None, mesh=_mesh(2))
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        SQM(tp_mesh=_mesh(2), device="cpu")
+# --------------------------------------------------------------------------
+# the tensor-parallel SQM gradient (item 17c)
+# --------------------------------------------------------------------------
+
+def _tp_mesh(k):
+    return ensemble_mesh(devices=["cpu"] * k, axis="tp")
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_eg(name):
+    """The reference's unsharded, jitted SQM2(charge=1).energy_and_gradient
+    of a fixture (a +1 cation: F1 limits closed shells to ~1e-7 Ha)."""
+    coords, z = _TP_MOLS[name]()
+    fn = jax.jit(lambda c: RefSQM2(charge=1).energy_and_gradient(c, z))
+    e, g = fn(jnp.asarray(coords))
+    return float(e), np.asarray(g)
+
+
+_TP_MOLS = {"ethane": lambda: alkane_chain(2),
+            "propane": lambda: alkane_chain(3), "s8": s8_crown}
+
+
+@pytest.mark.parametrize("name,k,rows", [
+    ("ethane", 4, [2, 2, 2, 2]), ("propane", 4, [3, 3, 3, 2]),
+    ("s8", 2, [4, 4])])
+def test_tp_gradient_matches_reference_and_unsharded(name, k, rows,
+                                                     monkeypatch):
+    """tp_energy_and_gradient on k CPU shards against the reference's
+    unsharded SQM2 (1e-10 relative) and the port's unsharded run (1e-12):
+    ethane; propane, whose 11 rows split unevenly; the S8 crown, whose row-3
+    atoms take the d-shell (nob = 9) blocks."""
+    coords, z = _TP_MOLS[name]()
+    calc = SQM2(charge=1, device="cpu")
+    seen = []
+    build = sqm_mod._overlap_full
+
+    def spy(x, prm, nob, rows=sqm_mod.ALL_ROWS):
+        seen.append((nob, rows))
+        return build(x, prm, nob, rows)
+
+    monkeypatch.setattr(sqm_mod, "_overlap_full", spy)
+    e, g = tp_energy_and_gradient(calc, coords, z, mesh=_tp_mesh(k))
+    assert calc.tp_mesh is None and calc.tp_axis == "tp"
+    assert e.shape == () and g.shape == (len(z), 3)
+    assert [r.stop - r.start for _, r in seen] == rows
+    assert {nob for nob, _ in seen} == {9 if name == "s8" else 4}
+    e_ref, g_ref = _ref_eg(name)
+    assert abs(float(e) - e_ref) <= 1e-10 * abs(e_ref)
+    assert np.abs(g.numpy() - g_ref).max() <= 1e-10 * np.abs(g_ref).max()
+    e1, g1 = calc.energy_and_gradient(torch.as_tensor(coords)[None], z)
+    assert abs(float(e) - float(e1[0])) <= 1e-12
+    assert (g - g1[0]).abs().max() <= 1e-12
+
+
+def test_tp_calculator_through_rfo_fsb_steps():
+    """SQM2(tp_mesh=4 CPU shards) through 3 rfo_fsb steps of ethane from
+    the default model Hessian (Lindh), and its seminumerical Hessian (the
+    6N displaced gradients in one sharded batch), against the same
+    unsharded, 1e-12. The shards sum the gradient in another order (~3e-17
+    Ha/Bohr apart); from the exact initial Hessian, whose 1e-4 Bohr central
+    differences amplify that, the 3 steps part by 6e-12 Bohr."""
+    coords, z = alkane_chain(2)
+    cfg = OptimizeConfig(method="rfo_fsb", nsteps=3,
+                         init_hessian="model:lindh")
+    tp_calc = SQM2(charge=1, device="cpu", tp_mesh=_tp_mesh(4),
+                   tp_axis="tp")
+    one_calc = SQM2(charge=1, device="cpu")
+    tp, one = (optimize(c, coords, z, config=cfg, device="cpu")
+               for c in (tp_calc, one_calc))
+    assert tp.n_iterations == one.n_iterations == 3
+    assert np.abs(np.asarray(tp.energy_history)
+                  - np.asarray(one.energy_history)).max() <= 1e-12
+    assert (tp.coords - one.coords).abs().max() <= 1e-12
+    x = torch.as_tensor(coords)[None]
+    assert (tp_calc.hessian(x, z) - one_calc.hessian(x, z)).abs().max() \
+        <= 1e-12
+
+
+def test_tp_refusals():
+    """A non-Mesh, an axis the mesh lacks, and coordinates (or a
+    calculator) on another device than the mesh's first are refused; the
+    calculator comes back unsharded."""
+    coords, z = alkane_chain(2)
+    calc = SQM2(charge=1, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
+        tp_energy_and_gradient(calc, coords, z, mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        SQM2(tp_mesh=["cpu"], device="cpu")
+    with pytest.raises(ValueError, match="axis"):
+        tp_energy_and_gradient(calc, coords, z, mesh=_tp_mesh(2),
+                               axis="batch")
+    with pytest.raises(ValueError, match="axis"):
+        SQM2(tp_mesh=_tp_mesh(2), tp_axis="batch", device="cpu")
+    # a mesh gathering on a card: the CPU coordinates are refused by the
+    # calculator's pair builds, the CPU calculator by the entry point
+    card = _tp_mesh(2)
+    card.devices[0] = torch.device("cuda", 0)
+    sharded = SQM2(charge=1, tp_mesh=card, device="cpu")
+    with pytest.raises(ValueError, match="disagree"):
+        sharded.energy(torch.as_tensor(coords)[None], z)
+    with pytest.raises(ValueError, match="calculator lives on"):
+        tp_energy_and_gradient(calc, torch.as_tensor(coords), z, mesh=card)
+    assert calc.tp_mesh is None
 
 
 # --------------------------------------------------------------------------

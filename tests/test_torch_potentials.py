@@ -12,9 +12,11 @@ from multioptpy_tpu.io.fixtures import diels_alder_reactant
 from multioptpy_tpu.potentials import BiasEngine as RefEngine
 from multioptpy_tpu.potentials import get_potential as ref_get
 from multioptpy_tpu.potentials.afir import afir_alpha as ref_alpha
+from multioptpy_tpu.potentials.base import ang_to_bohr as ref_ang_to_bohr
 from multioptpy_tpu_torch.calculators import model_surfaces as mb
 from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
 from multioptpy_tpu_torch.potentials.afir import afir_alpha
+from multioptpy_tpu_torch.potentials.base import ang_to_bohr
 
 torch.set_num_threads(1)
 
@@ -102,3 +104,10 @@ def test_muller_brown_energy_and_autodiff_hessian_match_reference():
         assert _rel(rh, h[k].numpy()) < 1e-10
     assert float(mb.muller_brown_energy(*mb.MB_TS_AB)) == pytest.approx(
         float(ref_mb.muller_brown_energy(*ref_mb.MB_TS_AB)), rel=1e-14)
+
+
+def test_ang_to_bohr_matches_reference():
+    for x in (1.54, [0.0, 1.09, -2.5], np.arange(6.0).reshape(2, 3)):
+        got, want = ang_to_bohr(x), ref_ang_to_bohr(x)
+        assert got.dtype == want.dtype == np.float64
+        assert np.array_equal(got, want)
