@@ -9,12 +9,44 @@ Gradients come from autograd of the summed batch energy (members are
 independent, so each member's gradient is its own), and the seminumerical
 Hessian evaluates all 6N displaced gradients of all B structures as one
 batch.
+
+Every calculator's `energy_and_gradient`, `hessian` and
+`numerical_hessian` run inside a `calc` span (a subclass's own are wrapped
+when the class is defined); the outermost of them counts the structures
+whose energy and gradient it evaluates (`gradients`), the seminumerical
+Hessian its 6N displaced structures per member.
 """
+
+import functools
 
 import numpy as np
 import torch
 
 from multioptpy_tpu_torch.device import resolve_device
+from multioptpy_tpu_torch.logging_utils import count, current, span
+
+_SPANNED = ("energy_and_gradient", "hessian", "numerical_hessian")
+
+
+def _calc_span(fn):
+    """fn(self, coords, z, ...) inside a `calc` span; an outermost
+    energy_and_gradient counts its B structures."""
+    if getattr(fn, "_calc_span", False):
+        return fn
+    gradients = fn.__name__ == "energy_and_gradient"
+
+    @functools.wraps(fn)
+    def call(self, coords, z, *args, **kwargs):
+        rec = current()
+        if rec is None:
+            return fn(self, coords, z, *args, **kwargs)
+        with rec.span("calc") as opened:
+            if gradients and opened is not None:
+                rec.count("gradients", coords.shape[0])
+            return fn(self, coords, z, *args, **kwargs)
+
+    call._calc_span = True
+    return call
 
 
 class Calculator:
@@ -25,6 +57,12 @@ class Calculator:
 
     on_device = True
     name = "base"
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for name in _SPANNED:
+            if name in cls.__dict__:
+                setattr(cls, name, _calc_span(cls.__dict__[name]))
 
     def __init__(self, charge=0, multiplicity=1, device=None, **kwargs):
         self.charge = int(charge)
@@ -39,8 +77,10 @@ class Calculator:
         """-> (E (B,), g (B, N, 3)), both detached."""
         with torch.enable_grad():
             x = coords.detach().requires_grad_(True)
-            e = self.energy(x, z)
-            (g,) = torch.autograd.grad(e.sum(), x)
+            with span("calc.forward"):
+                e = self.energy(x, z)
+            with span("calc.backward"):
+                (g,) = torch.autograd.grad(e.sum(), x)
         return e.detach(), g
 
     def gradient(self, coords, z):
@@ -66,10 +106,15 @@ class Calculator:
         eye = torch.eye(n3, dtype=coords.dtype, device=coords.device) * step
         flat = coords.reshape(b, 1, n3)
         disp = torch.cat([flat + eye, flat - eye], dim=1)   # (B, 6N, 3N)
+        count("gradients", b * 2 * n3)
         g = self.energy_and_gradient(disp.reshape(b * 2 * n3, n, 3), z)[1]
         g = g.reshape(b, 2, n3, n3)
         h = (g[:, 0] - g[:, 1]) / (2.0 * step)
         return 0.5 * (h + h.mT)
+
+
+for _name in _SPANNED:
+    setattr(Calculator, _name, _calc_span(getattr(Calculator, _name)))
 
 
 def composite_hessian(calc, coords, z):

@@ -25,7 +25,9 @@ from multioptpy_tpu_torch.device import bmv
 from multioptpy_tpu_torch.hessian.dispersion import (
     D2_C6_JNM6, D2_VDW_ANG, D4_A1, D4_A2, D4_EN, D4_GA, D4_GC, D4_R4R2, D4_S6,
     D4_S8, d3_coordination_numbers, d4_energy)
-from multioptpy_tpu_torch.ops.eigh64 import eigh_solve, inv_sqrt_psd, seeded_eigh
+from multioptpy_tpu_torch.logging_utils import span, spanned, to_card
+from multioptpy_tpu_torch.ops.eigh64 import (eigh_fast, eigh_solve,
+                                             inv_sqrt_psd, seeded_eigh)
 from multioptpy_tpu_torch.parallel.mesh import check_mesh, mesh_device
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1, UFF_VDW_R
 from multioptpy_tpu_torch.units import HARTREE2EV
@@ -474,6 +476,7 @@ def _overlap_full(coords, prm, nob, rows=ALL_ROWS):
     return torch.cat(blocks, dim=-2)
 
 
+@spanned("eigh")
 def _sqm_eigh(a, impl):
     """Band eigensolver dispatch: "auto" ("pallas" on a CUDA tensor, else
     torch.linalg.eigh) | "pallas" or "kernel" (steppers.rfo._eigh: the
@@ -487,7 +490,7 @@ def _sqm_eigh(a, impl):
     if callable(impl) or impl in ("pallas", "kernel"):
         from multioptpy_tpu_torch.steppers.rfo import _eigh
         return _eigh(a, impl)
-    return torch.linalg.eigh(a)
+    return eigh_fast(a)
 
 
 def _free_energy(eps, occ, kt):
@@ -638,8 +641,8 @@ def srb_energy(coords, z, k=_SRB_K, eta=_SRB_ETA, g_scal=_SRB_GSCAL,
     z_np = np.asarray(z)
     n = len(z_np)
     kind = dict(dtype=coords.dtype, device=coords.device)
-    en = torch.as_tensor(_SRB_EN[z_np], **kind)
-    r0 = torch.as_tensor(_SRB_R0[z_np], **kind)
+    en = to_card(_SRB_EN[z_np], **kind)
+    r0 = to_card(_SRB_R0[z_np], **kind)
     _, r2 = _pair_geometry(coords)
     r = torch.sqrt(r2 + 1e-12)
     den = (en[:, None] - en[None, :]).abs()
@@ -650,7 +653,7 @@ def srb_energy(coords, z, k=_SRB_K, eta=_SRB_ETA, g_scal=_SRB_GSCAL,
         k_pair = k
     else:
         hv = (z_np > 2).astype(np.float64)
-        k_pair = torch.as_tensor(
+        k_pair = to_card(
             np.where(hv[:, None] * hv[None, :] > 0, k_heavy, k), **kind)
     return torch.where(mask, k_pair * torch.exp(expo), 0.0).sum((-2, -1))
 
@@ -840,115 +843,121 @@ class SQM(Calculator):
         off = ~eye_nb
 
         # ---- EEQ electrostatics (first: the charges feed the D4 term) ----
-        r2 = self._tp_shard_rows(
-            lambda x, rows: _pair_geometry(x, rows)[1], coords)
-        r = torch.sqrt(r2 + eye_n)
-        chi, eta, r_q = prm["chi"], prm["eta"], prm["r_q"]
-        gamma2 = r_q[:, None] ** 2 + r_q[None, :] ** 2
-        j_off = 1.0 / torch.sqrt(r * r + gamma2)
-        diag = eta + math.sqrt(2.0 / math.pi) / r_q
-        a_mat = torch.where(eye_nb, diag[None, :] * torch.ones_like(eye_n),
-                            j_off)
-        ones = coords.new_ones((b, n, 1))
-        big = torch.cat([torch.cat([a_mat, ones], dim=-1),
-                         torch.cat([ones.mT, coords.new_zeros((b, 1, 1))],
-                                   dim=-1)], dim=-2)
-        rhs = torch.cat([-chi.expand(b, n),
-                         coords.new_full((b, 1), float(self.charge))], -1)
-        q = _sym_solve(big, rhs)[:, :n]
-        e_eeq = (chi * q).sum(-1) + 0.5 * (
-            q * bmv(a_mat, q)).sum(-1)
+        with span("sqm.eeq"):
+            r2 = self._tp_shard_rows(
+                lambda x, rows: _pair_geometry(x, rows)[1], coords)
+            r = torch.sqrt(r2 + eye_n)
+            chi, eta, r_q = prm["chi"], prm["eta"], prm["r_q"]
+            gamma2 = r_q[:, None] ** 2 + r_q[None, :] ** 2
+            j_off = 1.0 / torch.sqrt(r * r + gamma2)
+            diag = eta + math.sqrt(2.0 / math.pi) / r_q
+            a_mat = torch.where(eye_nb, diag[None, :] * torch.ones_like(eye_n),
+                                j_off)
+            ones = coords.new_ones((b, n, 1))
+            big = torch.cat([torch.cat([a_mat, ones], dim=-1),
+                             torch.cat([ones.mT, coords.new_zeros((b, 1, 1))],
+                                       dim=-1)], dim=-2)
+            rhs = torch.cat([-chi.expand(b, n),
+                             coords.new_full((b, 1), float(self.charge))], -1)
+            q = _sym_solve(big, rhs)[:, :n]
+            e_eeq = (chi * q).sum(-1) + 0.5 * (
+                q * bmv(a_mat, q)).sum(-1)
 
         # ---- overlap & Hamiltonian ----------------------------------------
-        s_blocks = self._tp_shard_rows(                  # (B,N,N,nob,nob)
-            lambda x, rows: _overlap_full(
-                x, self._static(z_np, x.device, dtype)[0], nob, rows),
-            coords)
-        h_diag = prm["h_diag"]
-        if nob == 9 and _param_active(self.h_d_shift):
-            h_diag = h_diag + (self.h_d_shift / HARTREE2EV) * prm["d_mask"]
-        if _param_active(self.k_cn_s, self.k_cn_p, self.k_q, self.k_q2):
-            rcov = prm["rcov"]
-            rc_ij = rcov[:, None] + rcov[None, :]
-            cn = torch.where(off, 1.0 / (1.0 + torch.exp(
-                -16.0 * (rc_ij / r - 1.0))), 0.0).sum(-1)
-            shift_s = -self.k_cn_s * cn - self.k_q * q - self.k_q2 * q * q
-            shift_p = -self.k_cn_p * cn - self.k_q * q - self.k_q2 * q * q
-            h_diag = h_diag + torch.stack([shift_s] + [shift_p] * (nob - 1),
-                                          dim=-1).reshape(b, -1)
-        m = nob * n
-        s_mat = s_blocks.permute(0, 1, 3, 2, 4).reshape(b, m, m)
-        if nob == 9:
-            # congruence D S D switching the d shells off under compression
-            rcov_d = prm["rcov"]
-            ratio = r / (rcov_d[:, None] + rcov_d[None, :])
-            sig = torch.where(eye_nb, 1.0,
-                              torch.sigmoid((ratio - 0.7) / 0.04))
-            f_at = torch.exp(torch.log(sig + 1e-300).sum(-1))   # (B,N)
-            d_col = prm["d_col"]
-            v = (1.0 - d_col + d_col * f_at[..., None]).reshape(b, m)
-            s_mat = v[:, :, None] * s_mat * v[:, None, :]
-        # same-atom blocks: exact orthonormality of the minimal basis
-        s_mat = s_mat * (1.0 - prm["diag_mask"]) + prm["eye_blocks"]
-        # atoms without p/d shells carry decoupled placeholder orbitals
-        valid = prm["valid"]
-        vv = valid[:, None] * valid[None, :]
-        s_mat = s_mat * vv + torch.diag(1.0 - valid)
+        with span("sqm.hamiltonian"):
+            s_blocks = self._tp_shard_rows(                  # (B,N,N,nob,nob)
+                lambda x, rows: _overlap_full(
+                    x, self._static(z_np, x.device, dtype)[0], nob, rows),
+                coords)
+            h_diag = prm["h_diag"]
+            if nob == 9 and _param_active(self.h_d_shift):
+                h_diag = h_diag + (self.h_d_shift / HARTREE2EV) * prm["d_mask"]
+            if _param_active(self.k_cn_s, self.k_cn_p, self.k_q, self.k_q2):
+                rcov = prm["rcov"]
+                rc_ij = rcov[:, None] + rcov[None, :]
+                cn = torch.where(off, 1.0 / (1.0 + torch.exp(
+                    -16.0 * (rc_ij / r - 1.0))), 0.0).sum(-1)
+                shift_s = -self.k_cn_s * cn - self.k_q * q - self.k_q2 * q * q
+                shift_p = -self.k_cn_p * cn - self.k_q * q - self.k_q2 * q * q
+                h_diag = h_diag + torch.stack(
+                    [shift_s] + [shift_p] * (nob - 1), dim=-1).reshape(b, -1)
+            m = nob * n
+            s_mat = s_blocks.permute(0, 1, 3, 2, 4).reshape(b, m, m)
+            if nob == 9:
+                # congruence D S D switching the d shells off under compression
+                rcov_d = prm["rcov"]
+                ratio = r / (rcov_d[:, None] + rcov_d[None, :])
+                sig = torch.where(eye_nb, 1.0,
+                                  torch.sigmoid((ratio - 0.7) / 0.04))
+                f_at = torch.exp(torch.log(sig + 1e-300).sum(-1))   # (B,N)
+                d_col = prm["d_col"]
+                v = (1.0 - d_col + d_col * f_at[..., None]).reshape(b, m)
+                s_mat = v[:, :, None] * s_mat * v[:, None, :]
+            # same-atom blocks: exact orthonormality of the minimal basis
+            s_mat = s_mat * (1.0 - prm["diag_mask"]) + prm["eye_blocks"]
+            # atoms without p/d shells carry decoupled placeholder orbitals
+            valid = prm["valid"]
+            vv = valid[:, None] * valid[None, :]
+            s_mat = s_mat * vv + torch.diag(1.0 - valid)
 
-        h_mat = 0.5 * prm["k_pair"] * (h_diag[..., :, None]
-                                       + h_diag[..., None, :]) * s_mat
-        eye_m = torch.eye(m, dtype=dtype, device=dev)
-        h_mat = torch.where(eye_m.bool(), h_diag[..., None, :], h_mat * vv)
+            h_mat = 0.5 * prm["k_pair"] * (h_diag[..., :, None]
+                                           + h_diag[..., None, :]) * s_mat
+            eye_m = torch.eye(m, dtype=dtype, device=dev)
+            h_mat = torch.where(eye_m.bool(), h_diag[..., None, :], h_mat * vv)
 
         # ---- Loewdin orthogonalization and band energy --------------------
-        s_reg = s_mat + 1e-10 * eye_m
-        if dtype == torch.float64:
-            s_inv_sqrt = inv_sqrt_psd(s_reg)
-        else:
-            s_inv_sqrt = _inv_sqrt_newton_schulz(s_reg)
-        h_prime = s_inv_sqrt @ h_mat @ s_inv_sqrt
-        h_prime = 0.5 * (h_prime + h_prime.mT)
-        e_bs = _band_free_energy(h_prime, sc["n_elec"], self.kt,
-                                 self.eigh_impl)
-        e_eht = e_bs - sc["e_ref"]
+        with span("sqm.loewdin"):
+            s_reg = s_mat + 1e-10 * eye_m
+            if dtype == torch.float64:
+                s_inv_sqrt = inv_sqrt_psd(s_reg)
+            else:
+                s_inv_sqrt = _inv_sqrt_newton_schulz(s_reg)
+            h_prime = s_inv_sqrt @ h_mat @ s_inv_sqrt
+            h_prime = 0.5 * (h_prime + h_prime.mT)
+        with span("sqm.band"):
+            e_bs = _band_free_energy(h_prime, sc["n_elec"], self.kt,
+                                     self.eigh_impl)
+            e_eht = e_bs - sc["e_ref"]
 
         # ---- repulsion -----------------------------------------------------
-        z_eff, rcov = prm["z_eff"], prm["rcov"]
-        rc_sum = rcov[:, None] + rcov[None, :]
-        r0_ij = self.rep_r0_scale * rc_sum
-        if self.rep_r0_heavy_scale is not None:
-            r0_ij = torch.where(prm["hv_pair"], prm["scale_pair"] * rc_sum,
-                                r0_ij)
-        if _param_active(self.rep_cn):
-            cn = d3_coordination_numbers(coords, z_np)
-            dev_cn = torch.clamp(prm["cn0"] - cn, -1.5, 1.0)
-            f_cn = 1.0 + self.rep_cn * 0.5 * (dev_cn[:, :, None]
-                                              + dev_cn[:, None, :])
-            f_cn = torch.clamp(f_cn, 0.7, 1.4)
-            r0_ij = torch.where(prm["hv_pair"], r0_ij * f_cn, r0_ij)
-        e_rep_pair = (self.rep_k * z_eff[:, None] * z_eff[None, :] / r
-                      * torch.exp(-(r / r0_ij) ** _REP_EXP))
-        hh = prm["hh"]
-        e_rep_pair = e_rep_pair + (self.rep_hh * hh / r
-                                   * torch.exp(-(r / 1.1) ** 2))
-        if _param_active(self.rep_hh_gem):
-            e_rep_pair = e_rep_pair + (self.rep_hh_gem * hh
-                                       * torch.exp(-((r - 2.8) / 0.45) ** 2))
-        e_rep = 0.5 * torch.where(off, e_rep_pair, 0.0).sum((-2, -1))
+        with span("sqm.classical"):
+            z_eff, rcov = prm["z_eff"], prm["rcov"]
+            rc_sum = rcov[:, None] + rcov[None, :]
+            r0_ij = self.rep_r0_scale * rc_sum
+            if self.rep_r0_heavy_scale is not None:
+                r0_ij = torch.where(prm["hv_pair"], prm["scale_pair"] * rc_sum,
+                                    r0_ij)
+            if _param_active(self.rep_cn):
+                cn = d3_coordination_numbers(coords, z_np)
+                dev_cn = torch.clamp(prm["cn0"] - cn, -1.5, 1.0)
+                f_cn = 1.0 + self.rep_cn * 0.5 * (dev_cn[:, :, None]
+                                                  + dev_cn[:, None, :])
+                f_cn = torch.clamp(f_cn, 0.7, 1.4)
+                r0_ij = torch.where(prm["hv_pair"], r0_ij * f_cn, r0_ij)
+            e_rep_pair = (self.rep_k * z_eff[:, None] * z_eff[None, :] / r
+                          * torch.exp(-(r / r0_ij) ** _REP_EXP))
+            hh = prm["hh"]
+            e_rep_pair = e_rep_pair + (self.rep_hh * hh / r
+                                       * torch.exp(-(r / 1.1) ** 2))
+            if _param_active(self.rep_hh_gem):
+                e_rep_pair = e_rep_pair + (
+                    self.rep_hh_gem * hh
+                    * torch.exp(-((r - 2.8) / 0.45) ** 2))
+            e_rep = 0.5 * torch.where(off, e_rep_pair, 0.0).sum((-2, -1))
 
-        # ---- dispersion ----------------------------------------------------
-        if self.dispersion == "d4":
-            e_disp = d4_energy(coords, z_np, charges=q)
-        else:
-            c6, rr0 = prm["c6"], prm["rr0"]
-            c6_ij = torch.sqrt(c6[:, None] * c6[None, :])
-            rr0_ij = rr0[:, None] + rr0[None, :]
-            f_damp = 1.0 / (1.0 + torch.exp(-_D2_D * (r / rr0_ij - 1.0)))
-            e_disp_pair = -_D2_S6 * c6_ij / r ** 6 * f_damp
-            e_disp = 0.5 * torch.where(off, e_disp_pair, 0.0).sum((-2, -1))
+            # ---- dispersion --------------------------------------------
+            if self.dispersion == "d4":
+                e_disp = d4_energy(coords, z_np, charges=q)
+            else:
+                c6, rr0 = prm["c6"], prm["rr0"]
+                c6_ij = torch.sqrt(c6[:, None] * c6[None, :])
+                rr0_ij = rr0[:, None] + rr0[None, :]
+                f_damp = 1.0 / (1.0 + torch.exp(-_D2_D * (r / rr0_ij - 1.0)))
+                e_disp_pair = -_D2_S6 * c6_ij / r ** 6 * f_damp
+                e_disp = 0.5 * torch.where(off, e_disp_pair, 0.0).sum((-2, -1))
 
-        e_srb = (srb_energy(coords, z_np, k_heavy=self.srb_k_heavy)
-                 if self.srb else coords.new_zeros(b))
+            e_srb = (srb_energy(coords, z_np, k_heavy=self.srb_k_heavy)
+                     if self.srb else coords.new_zeros(b))
         return {"eht": e_eht, "eeq": e_eeq, "rep": e_rep, "disp": e_disp,
                 "srb": e_srb, "charges": q}
 

@@ -52,6 +52,9 @@ from multioptpy_tpu_torch.hessian.block_updates import (block_update_hessian,
 from multioptpy_tpu_torch.hessian.model import (make_model_hessian_fn,
                                                 model_hessian)
 from multioptpy_tpu_torch.hessian.updates import auto_scale, update_hessian
+from multioptpy_tpu_torch.logging_utils import (count, count_members,
+                                                host_read, recording, span,
+                                                spanned)
 from multioptpy_tpu_torch.ops import hosteval
 from multioptpy_tpu_torch.steppers import diis, gp, learned, ml
 from multioptpy_tpu_torch.steppers.enhancements import (
@@ -234,6 +237,7 @@ def _masses3(z, dtype, device):
         masses_from_z(np.asarray(z)).to(dtype=dtype, device=device), 3)
 
 
+@spanned("init")
 def init_state(coords, z, calc, bias_engine=None, config=OptimizeConfig(),
                hessian0=None, internals=None):
     """The initial batched OptState of coords (B,N,3): one energy/gradient
@@ -442,18 +446,21 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
         bm = ic.b_matrix(coords)
         g_q = bmv(ic.g_pinv(ic.g_matrix(bm)), bmv(bm, g_flat))
         h_q, g_q_prev, q_prev = state.fo_state
-        s_q = q_now - q_prev
-        s_q = torch.where(ic.torsion_mask(coords.device),
-                          torch.atan2(torch.sin(s_q), torch.cos(s_q)), s_q)
-        have_pair = (state.iteration > 0) & (
-            torch.linalg.vector_norm(s_q, dim=-1) > 1e-12)
-        h_q = torch.where(have_pair[:, None, None],
-                          update_hessian(h_q, s_q, g_q - g_q_prev, sub), h_q)
-        if config.fc_count > 0 and calc.on_device:
-            h_q = rebuild_rows(h_q, state, config.fc_count, lambda idx: (
-                ic.internal_hessian_from_cart(
-                    exact_hessian(coords[idx]), g_flat[idx].reshape(
-                        len(idx), -1, 3), coords[idx])))
+        with span("step.update"):
+            s_q = q_now - q_prev
+            s_q = torch.where(ic.torsion_mask(coords.device),
+                              torch.atan2(torch.sin(s_q), torch.cos(s_q)),
+                              s_q)
+            have_pair = (state.iteration > 0) & (
+                torch.linalg.vector_norm(s_q, dim=-1) > 1e-12)
+            h_q = torch.where(have_pair[:, None, None],
+                              update_hessian(h_q, s_q, g_q - g_q_prev, sub),
+                              h_q)
+            if config.fc_count > 0 and calc.on_device:
+                h_q = rebuild_rows(h_q, state, config.fc_count, lambda idx: (
+                    ic.internal_hessian_from_cart(
+                        exact_hessian(coords[idx]), g_flat[idx].reshape(
+                            len(idx), -1, 3), coords[idx])))
 
         u, keep = ic.delocalized_basis(coords)
         g_u = bmv(u.mT, g_q) * keep
@@ -480,39 +487,47 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
     def quasi_newton_move(state, g_flat):
         b, n3 = g_flat.shape
         eye = torch.eye(n3, dtype=g_flat.dtype, device=g_flat.device)
-        s = (state.coords - state.prev_coords).reshape(b, -1)
-        y = (state.raw_gradient - state.prev_raw_gradient).reshape(b, -1)
-        have_pair = (state.iteration > 0) & (
-            torch.linalg.vector_norm(s, dim=-1) > 1e-12)
-        is_identity = (state.hessian == eye).all(-1).all(-1)
-        h = auto_scale(state.hessian, s, y, is_identity & have_pair)
-        if sub.startswith("block"):
-            win = state.fo_state[0]
-            h_upd, win_new = block_update_hessian(h, win, s, y, sub)
-            h = torch.where(have_pair[:, None, None], h_upd, h)
-            qn_fo = (_select(have_pair, win_new, win),)
-        else:
-            h = torch.where(have_pair[:, None, None],
-                            update_hessian(h, s, y, sub), h)
-            qn_fo = ()
-        if config.fc_count > 0 and calc.on_device:
-            h = rebuild_rows(h, state, config.fc_count,
-                             lambda idx: exact_hessian(state.coords[idx]))
-        if config.mfc_count > 0 and model_hessian_fn is not None:
-            h = rebuild_rows(h, state, config.mfc_count,
-                             lambda idx: model_hessian_fn(
-                                 state.coords[idx], state.raw_gradient[idx]))
+        with span("step.update"):
+            s = (state.coords - state.prev_coords).reshape(b, -1)
+            y = (state.raw_gradient - state.prev_raw_gradient).reshape(b, -1)
+            have_pair = (state.iteration > 0) & (
+                torch.linalg.vector_norm(s, dim=-1) > 1e-12)
+            is_identity = (state.hessian == eye).all(-1).all(-1)
+            h = auto_scale(state.hessian, s, y, is_identity & have_pair)
+            if sub.startswith("block"):
+                win = state.fo_state[0]
+                h_upd, win_new = block_update_hessian(h, win, s, y, sub)
+                h = torch.where(have_pair[:, None, None], h_upd, h)
+                qn_fo = (_select(have_pair, win_new, win),)
+            else:
+                h = torch.where(have_pair[:, None, None],
+                                update_hessian(h, s, y, sub), h)
+                qn_fo = ()
+            if config.fc_count > 0 and calc.on_device:
+                h = rebuild_rows(h, state, config.fc_count,
+                                 lambda idx: exact_hessian(state.coords[idx]))
+            if config.mfc_count > 0 and model_hessian_fn is not None:
+                h = rebuild_rows(h, state, config.mfc_count,
+                                 lambda idx: model_hessian_fn(
+                                     state.coords[idx],
+                                     state.raw_gradient[idx]))
 
         # TR/rot-projected effective Hessian, the projected-out subspace
         # shifted to +1e3 so it can never be chosen as a saddle mode
-        if config.project_tr_rot and state.coords.shape[1] > 1:
-            p = tr_rot_projector(state.coords)
-            h_eff = p.mT @ h @ p
-            h_eff = 0.5 * (h_eff + h_eff.mT) + 1e3 * (eye - p)
-        else:
-            h_eff = h
-        if constrained:
-            h_eff = constraints.project_hessian(h_eff, state.coords)
+        with span("step.project"):
+            if config.project_tr_rot and state.coords.shape[1] > 1:
+                p = tr_rot_projector(state.coords)
+                h_eff = p.mT @ h @ p
+                h_eff = 0.5 * (h_eff + h_eff.mT) + 1e3 * (eye - p)
+            else:
+                h_eff = h
+            if constrained:
+                h_eff = constraints.project_hessian(h_eff, state.coords)
+        return quasi_newton_solve(state, g_flat, h, h_eff, qn_fo)
+
+    @spanned("step.solve")
+    def quasi_newton_solve(state, g_flat, h, h_eff, qn_fo):
+        b = g_flat.shape[0]
         trust_new = new_trust(state)
         if is_mw:
             # the step in M^1/2-scaled coordinates, scaled back below
@@ -572,6 +587,7 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
             qn_fo = qn_fo + (new_d,)
         return step, h, trust_new, aux["predicted_energy_change"], qn_fo
 
+    @spanned("step.solve")
     def first_order_move(state, g_flat):
         b = g_flat.shape[0]
         x_flat = state.coords.reshape(b, -1)
@@ -617,18 +633,23 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
         fo = (fo_new,) if fo_new is not None else ()
         return mv, state.hessian, trust, (g_flat * mv).sum(-1), fo
 
+    @spanned("step")
     def step(state):
         b = state.coords.shape[0]
+        count_members(state.converged)
         g = state.gradient
-        # single-particle model surfaces live in the translation subspace
-        if config.project_tr_rot and state.coords.shape[1] > 1:
-            g = project_gradient_tr_rot(g, state.coords)
-        if constrained:
-            g = constraints.project_gradient(g, state.coords)
+        with span("step.project"):
+            # single-particle model surfaces live in the translation
+            # subspace
+            if config.project_tr_rot and state.coords.shape[1] > 1:
+                g = project_gradient_tr_rot(g, state.coords)
+            if constrained:
+                g = constraints.project_gradient(g, state.coords)
         g_flat = g.reshape(b, -1)
 
         if is_dic:
-            mv_flat, h, trust, predicted, fo = dic_move(state, g_flat)
+            with span("step.solve"):
+                mv_flat, h, trust, predicted, fo = dic_move(state, g_flat)
         elif kind in ("rfo", "prfo"):
             mv_flat, h, trust, predicted, fo = quasi_newton_move(state, g_flat)
         else:
@@ -663,48 +684,49 @@ def make_step_fn(calc, z, bias_engine=None, config=OptimizeConfig(),
                 # SHAKE the geometry back onto the constraint manifold
                 new_coords = constraints.shake(new_coords, constraint_targets)
                 move = new_coords - state.coords
+        count("step_structures", new_coords.shape[0])
         e_new, g_new, raw_g_new = hosteval.eg_with_raw(calc, new_coords, z,
                                                        bias_engine)
-
-        conv_now = check_convergence(g, move, criteria)
-        converged = state.converged | conv_now
-        new_state = OptState(
-            coords=new_coords, energy=e_new, gradient=g_new,
-            raw_gradient=raw_g_new,
-            prev_coords=state.coords, prev_energy=state.energy,
-            prev_raw_gradient=state.raw_gradient,
-            hessian=h, trust_radius=trust,
-            predicted_change=predicted.to(state.energy.dtype),
-            move=move, iteration=state.iteration + 1, converged=converged,
-            fo_state=fo)
-
-        # trust-region step rejection (minimization only): revert an
-        # uphill move, shrink the radius, and learn the measured curvature
-        # of the failed trial with one BFGS update
-        if saddle_order == 0 and kind == "rfo":
-            reject = (~state.converged) & ~conv_now & (
-                e_new > state.energy + 1e-14)
-            s_trial = mv_flat
-            y_trial = (raw_g_new - state.raw_gradient).reshape(b, -1)
-            upd_ok = torch.isfinite(y_trial).all(-1) & (
-                (y_trial * s_trial).sum(-1) > 1e-14)
-            h_learn = torch.where(upd_ok[:, None, None],
-                                  update_hessian(h, s_trial, y_trial, "bfgs"),
-                                  h)
-            rejected = state._replace(
-                hessian=h_learn,
-                prev_coords=state.coords,
+        with span("step.accept"):
+            conv_now = check_convergence(g, move, criteria)
+            converged = state.converged | conv_now
+            new_state = OptState(
+                coords=new_coords, energy=e_new, gradient=g_new,
+                raw_gradient=raw_g_new,
+                prev_coords=state.coords, prev_energy=state.energy,
                 prev_raw_gradient=state.raw_gradient,
-                trust_radius=torch.clamp(
-                    torch.linalg.vector_norm(mv_flat, dim=-1) * 0.25,
-                    min=1e-5),
-                predicted_change=torch.zeros_like(state.predicted_change),
-                iteration=state.iteration + 1)
-            new_state = _select(reject, rejected, new_state)
+                hessian=h, trust_radius=trust,
+                predicted_change=predicted.to(state.energy.dtype),
+                move=move, iteration=state.iteration + 1,
+                converged=converged, fo_state=fo)
 
-        # converged members keep their state frozen entirely
-        return _select(state.converged, state._replace(converged=converged),
-                       new_state)
+            # trust-region step rejection (minimization only): revert an
+            # uphill move, shrink the radius, and learn the measured
+            # curvature of the failed trial with one BFGS update
+            if saddle_order == 0 and kind == "rfo":
+                reject = (~state.converged) & ~conv_now & (
+                    e_new > state.energy + 1e-14)
+                s_trial = mv_flat
+                y_trial = (raw_g_new - state.raw_gradient).reshape(b, -1)
+                upd_ok = torch.isfinite(y_trial).all(-1) & (
+                    (y_trial * s_trial).sum(-1) > 1e-14)
+                h_learn = torch.where(
+                    upd_ok[:, None, None],
+                    update_hessian(h, s_trial, y_trial, "bfgs"), h)
+                rejected = state._replace(
+                    hessian=h_learn,
+                    prev_coords=state.coords,
+                    prev_raw_gradient=state.raw_gradient,
+                    trust_radius=torch.clamp(
+                        torch.linalg.vector_norm(mv_flat, dim=-1) * 0.25,
+                        min=1e-5),
+                    predicted_change=torch.zeros_like(state.predicted_change),
+                    iteration=state.iteration + 1)
+                new_state = _select(reject, rejected, new_state)
+
+            # converged members keep their state frozen entirely
+            return _select(state.converged,
+                           state._replace(converged=converged), new_state)
 
     return step
 
@@ -750,8 +772,9 @@ def _stop_requested(state, config, stop_file, dissociation_limit,
     (-negeigval, with exact Hessians)."""
     if stop_file and os.path.exists(stop_file):
         return True
-    if dissociation_limit and dissociation_detected(state.coords[0],
-                                                    dissociation_limit):
+    if dissociation_limit and dissociation_detected(
+            host_read(torch.Tensor.cpu, state.coords[0]),
+            dissociation_limit):
         return True
     if shape_conditions and judge_shape_condition(state.coords[0],
                                                   shape_conditions):
@@ -804,7 +827,7 @@ def _optimize_chunked(step, state, config, record_trajectory=False,
     """
     chunk = int(config.scan_chunk)
     stage = _stages(timer)
-    energies = [float(state.energy[0])]
+    energies = [host_read(float, state.energy[0])]
     traj = [state.coords[0].cpu().numpy()] if record_trajectory else None
     it = 0
     n_chunks = -(-config.nsteps // chunk)
@@ -813,7 +836,7 @@ def _optimize_chunked(step, state, config, record_trajectory=False,
             stopped = torch.zeros_like(state.converged)
             e_h, conv_h, c_h = [], [], []
             for _ in range(min(chunk, config.nsteps - ci * chunk)):
-                if bool((state.converged | stopped).all()):
+                if host_read(bool, (state.converged | stopped).all()):
                     break
                 new = step(state)
                 active = (~stopped) & (state.iteration < config.nsteps)
@@ -831,33 +854,35 @@ def _optimize_chunked(step, state, config, record_trajectory=False,
                 if record_trajectory:
                     c_h.append(state.coords[0])
             # one transfer for everything the host inspects
-            e_np = torch.stack(e_h).cpu().numpy()
-            conv_np = torch.stack(conv_h).cpu().numpy()
+            e_np = host_read(torch.Tensor.cpu, torch.stack(e_h)).numpy()
+            conv_np = host_read(torch.Tensor.cpu, torch.stack(conv_h)).numpy()
         take = min(chunk, config.nsteps - ci * chunk)
         if conv_np.any():
             take = min(take, int(np.argmax(conv_np)) + 1)
         it = ci * chunk + take
         energies.extend(float(e) for e in e_np[:take])
-        with stage("host"):
-            if record_trajectory:
-                traj.extend(c.cpu().numpy() for c in c_h[:take])
-            if callback is not None:
-                callback(it, state)
-            if (checkpoint_path and checkpoint_every
-                    and (it // checkpoint_every)
-                    > (max(it - chunk, 0) // checkpoint_every)):
-                _save(checkpoint_path, state, it, config)
-        if bool(stopped[0]):
-            print(f"# runaway detected (|E| > 1e8 or non-finite) in "
-                  f"method={config.method} saddle_order="
-                  f"{config.saddle_order} around iteration {it} - "
-                  "keeping the last finite state")
-            break
-        if bool(conv_np[-1]):
-            break
-        if _stop_requested(state, config, stop_file, dissociation_limit,
-                           shape_conditions, detect_negative_eigenvalues):
-            break
+        with span("loop"):
+            with stage("host"):
+                if record_trajectory:
+                    traj.extend(c.cpu().numpy() for c in c_h[:take])
+                if callback is not None:
+                    callback(it, state)
+                if (checkpoint_path and checkpoint_every
+                        and (it // checkpoint_every)
+                        > (max(it - chunk, 0) // checkpoint_every)):
+                    _save(checkpoint_path, state, it, config)
+            if host_read(bool, stopped[0]):
+                print(f"# runaway detected (|E| > 1e8 or non-finite) in "
+                      f"method={config.method} saddle_order="
+                      f"{config.saddle_order} around iteration {it} - "
+                      "keeping the last finite state")
+                break
+            if bool(conv_np[-1]):
+                break
+            if _stop_requested(state, config, stop_file, dissociation_limit,
+                               shape_conditions,
+                               detect_negative_eigenvalues):
+                break
     return OptResult(
         coords=state.coords[0], energy=state.energy[0],
         gradient=state.gradient[0], converged=state.converged[0],
@@ -886,64 +911,72 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
     state)` sees the batched state (batch of one). `timer` (a
     `logging_utils.StageTimer`) records the wall clock of the stages
     "step" (the step, up to its energy on the host) and "host" (the
-    trajectory, callback and checkpoint). With `config.scan_chunk > 1` the
+    trajectory, callback and checkpoint), and is the current recorder of
+    the call's spans: `job`, `init`, each `step` and `loop`, the `wait` of
+    each host read, and what they call. With `config.scan_chunk > 1` the
     loop runs `_optimize_chunked`."""
     dev = calc_device(calc, device, "the optimization")
     x = on_device(coords, dev)[None]
-    constraint_targets = None
-    if constraints is not None:
-        if constraints.n_atoms is None:
-            constraints.n_atoms = x.shape[1]
-        if constraints.n_constraints:
-            constraint_targets = constraints.targets(x)
-            x = constraints.shake(x, constraint_targets)
-    internals = None
-    if config.method.lower().startswith("dic"):
-        internals = auto_internals(x[0].cpu().numpy(), np.asarray(z))
-    if resume_from is not None:
-        from multioptpy_tpu_torch.checkpoint import load_checkpoint
-        state, _ = load_checkpoint(resume_from, device=dev)
-    else:
-        h0 = None if hessian0 is None else torch.as_tensor(
-            hessian0, dtype=x.dtype, device=dev)
-        state = init_state(x, z, calc, bias_engine, config, h0,
-                           internals=internals)
-    step = make_step_fn(calc, z, bias_engine, config,
-                        _model_hessian_fn(x[0], z, config), constraints,
-                        constraint_targets, internals=internals)
-    checks = dict(stop_file=stop_file, dissociation_limit=dissociation_limit,
-                  shape_conditions=shape_conditions,
-                  detect_negative_eigenvalues=detect_negative_eigenvalues)
-    if config.scan_chunk and config.scan_chunk > 1:
-        return _optimize_chunked(
-            step, state, config, record_trajectory=record_trajectory,
-            callback=callback, checkpoint_path=checkpoint_path,
-            checkpoint_every=checkpoint_every, timer=timer, **checks)
+    with recording(timer), span("job") as job:
+        if job is not None:
+            job.rec.note_job(1, x.shape[1], config.method)
+        constraint_targets = None
+        if constraints is not None:
+            if constraints.n_atoms is None:
+                constraints.n_atoms = x.shape[1]
+            if constraints.n_constraints:
+                constraint_targets = constraints.targets(x)
+                x = constraints.shake(x, constraint_targets)
+        internals = None
+        if config.method.lower().startswith("dic"):
+            internals = auto_internals(x[0].cpu().numpy(), np.asarray(z))
+        if resume_from is not None:
+            from multioptpy_tpu_torch.checkpoint import load_checkpoint
+            state, _ = load_checkpoint(resume_from, device=dev)
+        else:
+            h0 = None if hessian0 is None else torch.as_tensor(
+                hessian0, dtype=x.dtype, device=dev)
+            state = init_state(x, z, calc, bias_engine, config, h0,
+                               internals=internals)
+        step = make_step_fn(calc, z, bias_engine, config,
+                            _model_hessian_fn(x[0], z, config), constraints,
+                            constraint_targets, internals=internals)
+        checks = dict(stop_file=stop_file,
+                      dissociation_limit=dissociation_limit,
+                      shape_conditions=shape_conditions,
+                      detect_negative_eigenvalues=detect_negative_eigenvalues)
+        if config.scan_chunk and config.scan_chunk > 1:
+            return _optimize_chunked(
+                step, state, config, record_trajectory=record_trajectory,
+                callback=callback, checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, timer=timer, **checks)
 
-    stage = _stages(timer)
-    energies = [float(state.energy[0])]
-    traj = [state.coords[0].cpu().numpy()] if record_trajectory else None
-    it = 0
-    for it in range(1, config.nsteps + 1):
-        with stage("step"):
-            state = step(state)
-            e_now = float(state.energy[0])      # waits for the step
-        energies.append(e_now)
-        with stage("host"):
-            if record_trajectory:
-                traj.append(state.coords[0].cpu().numpy())
-            if callback is not None:
-                callback(it, state)
-            if (checkpoint_path and checkpoint_every
-                    and it % checkpoint_every == 0):
-                _save(checkpoint_path, state, it, config)
-        if bool(state.converged[0]):
-            break
-        if _stop_requested(state, config, **checks):
-            break
-        if not np.isfinite(e_now) or abs(e_now) > 1e8:
-            print("# runaway detected (|E| > 1e8 or non-finite) - aborting")
-            break
+        stage = _stages(timer)
+        energies = [host_read(float, state.energy[0])]
+        traj = [state.coords[0].cpu().numpy()] if record_trajectory else None
+        it = 0
+        for it in range(1, config.nsteps + 1):
+            with stage("step"):
+                state = step(state)
+                e_now = host_read(float, state.energy[0])  # waits for it
+            energies.append(e_now)
+            with span("loop"):
+                with stage("host"):
+                    if record_trajectory:
+                        traj.append(state.coords[0].cpu().numpy())
+                    if callback is not None:
+                        callback(it, state)
+                    if (checkpoint_path and checkpoint_every
+                            and it % checkpoint_every == 0):
+                        _save(checkpoint_path, state, it, config)
+                if host_read(bool, state.converged[0]):
+                    break
+                if _stop_requested(state, config, **checks):
+                    break
+                if not np.isfinite(e_now) or abs(e_now) > 1e8:
+                    print("# runaway detected (|E| > 1e8 or non-finite) - "
+                          "aborting")
+                    break
 
     return OptResult(
         coords=state.coords[0], energy=state.energy[0],
@@ -954,42 +987,63 @@ def optimize(calc, coords, z, bias_engine=None, config=OptimizeConfig(),
 
 def optimize_batch(calc, coords_batch, z, bias_engine=None,
                    config=OptimizeConfig(), n_steps=None, hessian0=None,
-                   device=None, mesh=None):
+                   device=None, mesh=None, timer=None, callback=None):
     """Batched optimization: `n_steps` steps of the whole batch (B,N,3) in
     lockstep, converged members frozen, any method. `device` as in
-    `optimize`.
+    `optimize`. `callback(it, state)` runs after each step of the whole
+    batch and reads nothing from the card unless it reads the state;
+    `timer` as in `optimize` (its "step" stage is the step's launches:
+    nothing waits for the card between steps).
 
     `mesh` (a `parallel.Mesh`) splits the batch over its shards: each
     shard's block advances through its own step on its own device, and the
     result is gathered in shard order on the mesh's first device, which
     `device`, if given, must be and `calc` must live on. `coords_batch`
-    may come already split (a `ShardedTree`). A batch that does not divide
-    runs whole on every shard, as the reference's replicated layout does."""
+    may come already split (a `ShardedTree`), and the callback sees the
+    split state. A batch that does not divide runs whole on every shard,
+    as the reference's replicated layout does."""
     n_steps = int(n_steps if n_steps is not None else config.nsteps)
     if mesh is not None:
         return _optimize_batch_sharded(calc, coords_batch, z, bias_engine,
                                        config, n_steps, hessian0, device,
-                                       mesh)
+                                       mesh, timer, callback)
     dev = calc_device(calc, device, "the optimization")
     x = on_device(coords_batch, dev)
-    h0 = None if hessian0 is None else torch.as_tensor(
-        hessian0, dtype=x.dtype, device=dev)
-    state = init_state(x, z, calc, bias_engine, config, h0)
-    step = make_step_fn(calc, z, bias_engine, config)
-    e_hist = []
-    for _ in range(n_steps):
-        state = step(state)
-        e_hist.append(state.energy)
-    e_hist = (torch.stack(e_hist).cpu().numpy() if e_hist
-              else np.zeros((0, x.shape[0])))
+    with recording(timer), span("job") as job:
+        if job is not None:
+            job.rec.note_job(x.shape[0], x.shape[1], config.method)
+        h0 = None if hessian0 is None else torch.as_tensor(
+            hessian0, dtype=x.dtype, device=dev)
+        state = init_state(x, z, calc, bias_engine, config, h0)
+        step = make_step_fn(calc, z, bias_engine, config)
+        state, e_hist = _batch_loop(step, state, n_steps, timer, callback,
+                                    lambda s: s.energy)
+        e_hist = (host_read(torch.Tensor.cpu, torch.stack(e_hist)).numpy()
+                  if e_hist else np.zeros((0, x.shape[0])))
     return OptResult(
         coords=state.coords, energy=state.energy, gradient=state.gradient,
         converged=state.converged, n_iterations=n_steps,
         energy_history=e_hist, coords_history=None)
 
 
+def _batch_loop(step, state, n_steps, timer, callback, energy):
+    """optimize_batch's lockstep loop: (the final state, each step's
+    energies, `energy(state)`)."""
+    stage = _stages(timer)
+    e_hist = []
+    for it in range(1, n_steps + 1):
+        with stage("step"):
+            state = step(state)
+        with span("loop"), stage("host"):
+            e_hist.append(energy(state))
+            if callback is not None:
+                callback(it, state)
+    return state, e_hist
+
+
 def _optimize_batch_sharded(calc, coords_batch, z, bias_engine, config,
-                            n_steps, hessian0, device, mesh):
+                            n_steps, hessian0, device, mesh, timer,
+                            callback):
     """optimize_batch over the shards of `mesh`, in lockstep."""
     from multioptpy_tpu_torch.parallel.mesh import (ShardedTree, map_shards,
                                                     mesh_device, shard_batch,
@@ -1012,16 +1066,20 @@ def _optimize_batch_sharded(calc, coords_batch, z, bias_engine, config,
             hessian0, dtype=xs.dtype, device=dev)
         return init_state(xs, z, calcs[i], bias_engine, config, h0)
 
-    state = map_shards(init, x)
-    e_hist = []
-    for _ in range(n_steps):
-        state = map_shards(lambda i, dev, s: steps[i](s), state)
-        e_hist.append(state._replace(
-            shards=tuple(s.energy for s in state.shards),
-            axes=state.axes.energy).gather())
-    final = state.gather()
-    e_hist = (torch.stack(e_hist).cpu().numpy() if e_hist
-              else np.zeros((0, final.coords.shape[0])))
+    with recording(timer), span("job") as job:
+        if job is not None:
+            rows = [xs.shape[0] for xs in x.shards]
+            job.rec.note_job(sum(rows) if x.split else rows[0],
+                             x.shards[0].shape[1], config.method)
+        state = map_shards(init, x)
+        state, e_hist = _batch_loop(
+            lambda st: map_shards(lambda i, dev, s: steps[i](s), st), state,
+            n_steps, timer, callback,
+            lambda st: st._replace(shards=tuple(s.energy for s in st.shards),
+                                   axes=st.axes.energy).gather())
+        final = state.gather()
+        e_hist = (host_read(torch.Tensor.cpu, torch.stack(e_hist)).numpy()
+                  if e_hist else np.zeros((0, final.coords.shape[0])))
     return OptResult(
         coords=final.coords, energy=final.energy, gradient=final.gradient,
         converged=final.converged, n_iterations=n_steps,

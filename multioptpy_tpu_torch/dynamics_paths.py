@@ -29,6 +29,7 @@ from multioptpy_tpu_torch.drivers.irc import IRCConfig, meta_irc, modekill
 from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
 from multioptpy_tpu_torch.geometry import masses_from_z
 from multioptpy_tpu_torch.io.xyz import read_trajectory, write_xyz
+from multioptpy_tpu_torch.logging_utils import device_ops
 from multioptpy_tpu_torch.ops import hosteval
 from multioptpy_tpu_torch.periodic import z_to_symbol
 from multioptpy_tpu_torch.potentials import BiasEngine, get_potential
@@ -160,10 +161,10 @@ def md_cpu_rerun(coords, z, thermostat, velocities, noise=None,
 
 def device_profile(fn, reps=1):
     """Device ms and launches per call of fn() on the card, from
-    torch.profiler tracing the card alone, summed over the raw trace (the
-    profiler's aggregated tables take seconds to build for a call of tens
-    of thousands of launches): {device_ms, launches, k1_launches} per
-    call."""
+    torch.profiler tracing the card alone, summed over the raw trace
+    (`logging_utils.device_ops`; the profiler's aggregated tables take
+    seconds to build for a call of tens of thousands of launches):
+    {device_ms, launches, k1_launches} per call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -171,13 +172,10 @@ def device_profile(fn, reps=1):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev_ns, launches, k1 = 0, 0, 0
-    for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
-            dev_ns += ev.duration_ns()
-            launches += 1
-            k1 += "jacobi_" in ev.name()
-    return {"device_ms": dev_ns / reps / 1e6, "launches": launches / reps,
+    ops = device_ops(prof)[0]
+    dev_ns = sum(t1 - t0 for _, t0, t1, _ in ops)
+    k1 = sum("jacobi_" in name for name, *_ in ops)
+    return {"device_ms": dev_ns / reps / 1e6, "launches": len(ops) / reps,
             "k1_launches": k1 / reps}
 
 

@@ -12,6 +12,7 @@ feeds the D3 and D4 pair tables.
 import numpy as np
 import torch
 
+from multioptpy_tpu_torch.logging_utils import to_card
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1, UFF_VDW_R
 from multioptpy_tpu_torch.units import ANGSTROM2BOHR as _ANG2BOHR
 
@@ -130,8 +131,8 @@ def d3_coordination_numbers(coords, z, k1=16.0, k2=4.0 / 3.0):
     """Fractional D3 coordination numbers (Grimme JCP 132, 154104 eq. 15),
     (B,N,3) -> (B,N): CN_i = sum_j 1/(1+exp(-k1 (k2 rcov_ij / r_ij - 1)))."""
     n = coords.shape[-2]
-    rcov = torch.as_tensor(COVALENT_RADII_1[np.asarray(z)], dtype=coords.dtype,
-                           device=coords.device)
+    rcov = to_card(COVALENT_RADII_1[np.asarray(z)], dtype=coords.dtype,
+                   device=coords.device)
     r = _distances(coords)
     rcov_sum = rcov[:, None] + rcov[None, :]
     term = torch.clamp(-k1 * (k2 * (rcov_sum / r) - 1.0), -100.0, 100.0)
@@ -177,8 +178,7 @@ def d4_energy(coords, z, charges=None, ga=D4_GA, **kw):
     if charges is None:
         charges = d4_charges(coords, z)
     kind = dict(dtype=coords.dtype, device=coords.device)
-    c6_ij, c8_ij, r0_ij = (torch.as_tensor(t, **kind)
-                           for t in d4_pair_tables(z))
+    c6_ij, c8_ij, r0_ij = (to_card(t, **kind) for t in d4_pair_tables(z))
     mask = torch.ones(n, n, dtype=torch.bool, device=coords.device).triu(1)
     r = _distances(coords)
     q2 = charges[:, :, None] ** 2 + charges[:, None, :] ** 2
@@ -198,12 +198,12 @@ def d3_energy(coords, z, s6=1.0, s8=0.7875, a1=0.4289, a2=4.4407,
     z = np.asarray(z)
     n = len(z)
     kind = dict(dtype=coords.dtype, device=coords.device)
-    c6 = torch.as_tensor(_C6_AU[z], **kind).expand(coords.shape[0], n)
+    c6 = to_card(_C6_AU[z], **kind).expand(coords.shape[0], n)
     if dynamic_cn:
         cn = d3_coordination_numbers(coords, z)
-        ref_cn = torch.as_tensor(_D3_REF_CN[z], **kind)
+        ref_cn = to_card(_D3_REF_CN[z], **kind)
         c6 = c6 * torch.clamp(1.0 - 0.05 * (cn - ref_cn), 0.75, 1.25)
-    r4r2 = torch.as_tensor(D3_R4R2[z], **kind)
+    r4r2 = to_card(D3_R4R2[z], **kind)
     mask = torch.ones(n, n, dtype=torch.bool, device=coords.device).triu(1)
     r = _distances(coords)
     c6_ij = torch.sqrt(c6[:, :, None] * c6[:, None, :])
@@ -221,8 +221,8 @@ def d2_energy(coords, z, s6=1.2, damping=20.0):
     z = np.asarray(z)
     n = len(z)
     kind = dict(dtype=coords.dtype, device=coords.device)
-    c6 = torch.as_tensor(_C6_AU[z], **kind)
-    r0 = torch.as_tensor(D2_VDW_ANG[z] * _ANG2BOHR, **kind)
+    c6 = to_card(_C6_AU[z], **kind)
+    r0 = to_card(D2_VDW_ANG[z] * _ANG2BOHR, **kind)
     mask = torch.ones(n, n, dtype=torch.bool, device=coords.device).triu(1)
     r = _distances(coords)
     c6_ij = torch.sqrt(c6[:, None] * c6[None, :])
@@ -277,8 +277,8 @@ def d4_charges(coords, z, bond_scale=1.3):
     z = np.asarray(z)
     n = len(z)
     kind = dict(dtype=coords.dtype, device=coords.device)
-    en = torch.as_tensor(D4_EN[z], **kind)
-    rcov = torch.as_tensor(np.asarray(COVALENT_RADII_1)[z], **kind)
+    en = to_card(D4_EN[z], **kind)
+    rcov = to_card(np.asarray(COVALENT_RADII_1)[z], **kind)
     r = _distances(coords)
     eye = torch.eye(n, dtype=torch.bool, device=coords.device)
     bonded = (r < bond_scale * (rcov[:, None] + rcov[None, :])) & ~eye

@@ -6,11 +6,14 @@ reference's CPU branches). `seeded_eigh` keeps the f32-seed + f64 Jacobi
 polish; its f32 seed is the Hopper Jacobi kernel on CUDA, as the TPU branch
 used the Pallas kernel. `eigh_solve` and `inv_sqrt_psd` are
 `torch.autograd.Function`s whose backward passes are the transposes of the
-reference's JVP rules.
+reference's JVP rules. `eigh_fast` is the port's one call of
+torch.linalg.eigh on its eigensolver paths: an `eigh` span that counts the
+call as "cusolver" on the card, "cpu" on the CPU.
 """
 
 import torch
 
+from multioptpy_tpu_torch.logging_utils import count_eigh, spanned
 from multioptpy_tpu_torch.ops.jacobi import (jacobi_sweeps, pad_to_even,
                                               sort_and_trim)
 
@@ -21,9 +24,10 @@ def _seed_eigh_f32(a32):
         from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_auto
 
         return jacobi_eigh_auto(a32, sweeps=8)
-    return torch.linalg.eigh(a32)
+    return eigh_fast(a32)
 
 
+@spanned("eigh")
 def seeded_eigh(a, polish_sweeps=2):
     """Eigendecomposition of symmetric f64 a (..., D, D), ascending; returns
     (w, v) with a = v @ diag(w) @ v.T. f32 seed, one Newton
@@ -43,9 +47,11 @@ def seeded_eigh(a, polish_sweeps=2):
                          batch_shape)
 
 
+@spanned("eigh")
 def eigh_fast(a, polish_sweeps=2):
     """The eigh entry point of the f64 hot paths: torch.linalg.eigh."""
     del polish_sweeps
+    count_eigh("cusolver" if a.is_cuda else "cpu", a)
     return torch.linalg.eigh(a)
 
 

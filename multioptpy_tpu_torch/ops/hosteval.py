@@ -2,8 +2,13 @@
 
 Counterpart of `multioptpy_tpu/ops/hosteval.py`. The reference jit-compiles
 these glue expressions once per calculator and shape; PyTorch runs eagerly,
-so here they are plain functions of batched coordinates (B, N, 3).
+so here they are plain functions of batched coordinates (B, N, 3). Each
+call of the calculator's energy and gradient or Hessian is a `step.calc`
+span: what lies inside it and outside the calculator's own `calc` span is
+the cost of the calculator's boundary (a wrapper around it).
 """
+
+from multioptpy_tpu_torch.logging_utils import span
 
 
 def _biased(bias_engine):
@@ -12,7 +17,8 @@ def _biased(bias_engine):
 
 def energy_and_gradient(calc, coords, z, bias_engine=None):
     """(e (B,), g (B,N,3)) with bias included."""
-    e, g = calc.energy_and_gradient(coords, z)
+    with span("step.calc"):
+        e, g = calc.energy_and_gradient(coords, z)
     if _biased(bias_engine):
         be, bg = bias_engine.energy_and_gradient(coords)
         e, g = e + be, g + bg
@@ -21,7 +27,8 @@ def energy_and_gradient(calc, coords, z, bias_engine=None):
 
 def eg_with_raw(calc, coords, z, bias_engine=None):
     """(e_eff, g_eff, raw_g): the init_state triple."""
-    e, g = calc.energy_and_gradient(coords, z)
+    with span("step.calc"):
+        e, g = calc.energy_and_gradient(coords, z)
     raw_g = g
     if _biased(bias_engine):
         be, bg = bias_engine.energy_and_gradient(coords)
@@ -39,7 +46,8 @@ def energy(calc, coords, z, bias_engine=None):
 
 def hessian(calc, coords, z, bias_engine=None):
     """Exact (numerical or autodiff) Hessians (B, 3N, 3N) with bias."""
-    h = calc.hessian(coords, z)
+    with span("step.calc"):
+        h = calc.hessian(coords, z)
     if _biased(bias_engine):
         h = h + bias_engine.hessian(coords)
     return h

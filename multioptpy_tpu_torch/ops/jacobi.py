@@ -11,6 +11,8 @@ device. The hand-written kernel is `ops/jacobi_cuda.py`.
 import numpy as np
 import torch
 
+from multioptpy_tpu_torch.logging_utils import count_eigh
+
 
 def _round_robin_schedule(n):
     """(n-1, n/2, 2) static pairing schedule (n even), pairs sorted."""
@@ -56,6 +58,7 @@ def jacobi_eigh(a, sweeps=10):
 
     Returns (w, v) with a = v @ diag(w) @ v.T (the torch.linalg.eigh
     convention)."""
+    count_eigh("cpu" if a.device.type == "cpu" else "jacobi", a)
     a, d0, batch_shape = pad_to_even(a)
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
     v0 = eye.expand(a.shape).clone()

@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import torch
 
+from multioptpy_tpu_torch.logging_utils import count_eigh, spanned
 from multioptpy_tpu_torch.ops.jacobi import pad_to_even, sort_and_trim
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -269,6 +270,7 @@ def jacobi_eigh_plain(a, sweeps=7):
                          batch_shape)
 
 
+@spanned("eigh")
 def jacobi_eigh_cuda(a, sweeps=7):
     """Eigendecomposition of symmetric a (..., D, D), ascending: returns
     (w, v) with a = v @ diag(w) @ v.T. f32 or f64, D up to `max_dim`.
@@ -277,6 +279,7 @@ def jacobi_eigh_cuda(a, sweeps=7):
     `launches` and to `variant_launches[variant]`); a CPU tensor runs
     `jacobi_eigh_plain`. Nothing else falls back."""
     if a.device.type == "cpu":
+        count_eigh("cpu", a)
         return jacobi_eigh_plain(a, sweeps)
     if a.device.type != "cuda":
         raise ValueError(f"jacobi_eigh_cuda: unsupported device {a.device}")
@@ -324,6 +327,7 @@ def launch(a3, sweeps, plan):
         if rc != 0:
             raise RuntimeError(f"jacobi_eigh {plan.variant} kernel launch "
                                f"failed: cudaError {rc} ({plan})")
+        count_eigh(f"k1.{plan.variant}", a3)
         jacobi_eigh_cuda.launches += 1
         jacobi_eigh_cuda.variant_launches[plan.variant] += 1
         key = (b, d, _DTYPE_TAG[a3.dtype], int(sweeps))
@@ -343,11 +347,13 @@ def reset_launches():
 reset_launches()
 
 
+@spanned("eigh")
 def jacobi_eigh_auto(h, sweeps=7):
     """`jacobi_eigh_cuda` below the kernel's shared-memory limit,
     torch.linalg.eigh above it (the reference's shape gate, at the Hopper
     kernel's own limit rather than the TPU crossover)."""
     d = h.shape[-1] + h.shape[-1] % 2
     if d > max_dim(h.dtype):
-        return torch.linalg.eigh(h)
+        from multioptpy_tpu_torch.ops.eigh64 import eigh_fast
+        return eigh_fast(h)
     return jacobi_eigh_cuda(h, sweeps)

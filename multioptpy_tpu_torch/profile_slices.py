@@ -8,18 +8,23 @@ For each slice of chip_smoke.py (A: 256 perturbed S8 rings on SQM f32;
 B: the Diels-Alder reactant on SQM2 f64; rfo_fsb, eigh_impl="pallas") it
 times, warm, with the host clock around work that ends in
 torch.cuda.synchronize():
-  * energy_gradient -- calc.energy_and_gradient of the batch;
-  * exact_hessian   -- calc.hessian (the seminumerical Hessian);
-  * projector       -- the TR/rot projector and projected Hessian;
-  * rfo_step        -- rs_rfo_step on the projected Hessian;
-  * update          -- the FSB Hessian update;
   * step            -- one full optimizer step (make_step_fn);
+  * exact_hessian   -- calc.hessian (the seminumerical Hessian);
   * the Jacobi kernel alone at the step's two shapes;
-then runs torch.profiler over a few full steps and reports the device
-time per step, the kernel launches per step, the device's idle share
-(1 - device time / unprofiled step time), the Jacobi kernel's device time
-and launches per step, and the top kernels by device time. Prints one
-JSON line per slice and the card's name and power limit.
+then records the program's spans (`logging_utils.StageTimer`) over the
+same real steps, taken again, and reports each layer's host milliseconds
+per step inside its span (inclusive: children counted in, and the card
+waited for only where the program itself waits):
+  * energy_gradient -- `step.calc`, the calculator's energy and gradient;
+  * projector       -- `step.project`, the TR/rot projections;
+  * rfo_step        -- `step.solve`, the RS-RFO step with its eigh;
+  * update          -- `step.update`, the FSB Hessian update;
+the self time of every span name per step and the host synchronizations
+per step; then runs torch.profiler over a few full steps and reports the
+device time per step, the kernel launches per step, the device's idle
+share (1 - device time / unprofiled step time), the Jacobi kernel's
+device time and launches per step, and the top kernels by device time.
+Prints one JSON line per slice and the card's name and power limit.
 """
 
 import json
@@ -33,13 +38,13 @@ from multioptpy_tpu_torch.calculators.sqm import SQM, SQM2
 from multioptpy_tpu_torch.device import resolve_device
 from multioptpy_tpu_torch.drivers.optimize import (OptimizeConfig, init_state,
                                                    make_step_fn)
-from multioptpy_tpu_torch.geometry import (project_gradient_tr_rot,
-                                           tr_rot_projector)
-from multioptpy_tpu_torch.hessian.updates import update_hessian
+from multioptpy_tpu_torch.geometry import tr_rot_projector
 from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+from multioptpy_tpu_torch.logging_utils import (StageTimer, device_ops,
+                                                recording)
 from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_cuda
 from multioptpy_tpu_torch.steppers.rfo import (_eigh, jacobi_sweeps_for,
-                                               rfo_extra_sweeps, rs_rfo_step)
+                                               rfo_extra_sweeps)
 
 
 def host_ms(fn, reps):
@@ -54,31 +59,32 @@ def host_ms(fn, reps):
 
 
 def profile_steps(step, state, n):
-    """Device time and launches per step over n steps, and the top kernels."""
+    """Device time and launches per step over n steps, and the top kernels
+    (`logging_utils.device_ops` over a profile of the card)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             state = step(state)
         torch.cuda.synchronize()
-    kernels = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((dev_us, ev.count, ev.key))
-    kernels.sort(reverse=True)
-    total_us = sum(k[0] for k in kernels)
+    by_name = {}
+    for name, t0, t1, _ in device_ops(prof)[0]:
+        row = by_name.setdefault(name, [0, 0])
+        row[0] += t1 - t0
+        row[1] += 1
+    kernels = sorted(((ns, cnt, name) for name, (ns, cnt) in by_name.items()),
+                     reverse=True)
+    total_ns = sum(k[0] for k in kernels)
     jacobi = [k for k in kernels if "jacobi_" in k[2]]
     return {
-        "device_ms_per_step": total_us / n / 1e3,
+        "device_ms_per_step": total_ns / n / 1e6,
         "launches_per_step": sum(k[1] for k in kernels) / n,
-        "jacobi_ms_per_step": sum(k[0] for k in jacobi) / n / 1e3,
+        "jacobi_ms_per_step": sum(k[0] for k in jacobi) / n / 1e6,
         "jacobi_launches_per_step": sum(k[1] for k in jacobi) / n,
         "top_kernels": [{"name": name[:80], "count_per_step": cnt / n,
-                         "ms_per_step": us / n / 1e3,
-                         "share": us / total_us if total_us else None}
-                        for us, cnt, name in kernels[:8]],
+                         "ms_per_step": ns / n / 1e6,
+                         "share": ns / total_ns if total_ns else None}
+                        for ns, cnt, name in kernels[:8]],
     }
 
 
@@ -88,34 +94,34 @@ def breakdown(name, calc, x, z, cfg, reps):
     step = make_step_fn(calc, z, config=cfg)
     for _ in range(2):                 # a quasi-Newton pair in hand
         state = step(state)
-    g = project_gradient_tr_rot(state.gradient, state.coords).reshape(b, -1)
     eye = torch.eye(3 * n, dtype=x.dtype, device=x.device)
-
-    def projected():
-        p = tr_rot_projector(state.coords)
-        h = p.mT @ state.hessian @ p
-        return 0.5 * (h + h.mT) + 1e3 * (eye - p)
-
-    h_eff = projected()
-    s = (state.coords - state.prev_coords).reshape(b, -1)
-    y = (state.raw_gradient - state.prev_raw_gradient).reshape(b, -1)
+    p = tr_rot_projector(state.coords)
+    h_eff = p.mT @ state.hessian @ p
+    h_eff = 0.5 * (h_eff + h_eff.mT) + 1e3 * (eye - p)
     band = 4 * n          # s + p orbitals per atom (no row-3 d shells here)
     band_sweeps = jacobi_sweeps_for(band) + 1
     out = {
         "slice": name, "batch": b, "atoms": n, "dtype": str(x.dtype),
-        "energy_gradient_ms": host_ms(
-            lambda: calc.energy_and_gradient(state.coords, z), reps),
         "exact_hessian_ms": host_ms(lambda: calc.hessian(state.coords, z), 1),
-        "projector_ms": host_ms(projected, reps),
-        "rfo_step_ms": host_ms(lambda: rs_rfo_step(
-            g, h_eff, state.trust_radius, eigh_impl="pallas"), reps),
-        "update_ms": host_ms(lambda: update_hessian(state.hessian, s, y,
-                                                    "fsb"), reps),
         "step_ms": host_ms(lambda: step(state), reps),
         "kernel_rfo_shape_ms": host_ms(
             lambda: _eigh(h_eff, "pallas", rfo_extra_sweeps(h_eff.dtype)),
             reps),
     }
+    timer = StageTimer()
+    with recording(timer):
+        for _ in range(reps):
+            step(state)
+    torch.cuda.synchronize()
+    names = timer.by_name()
+    for key, span in (("energy_gradient_ms", "step.calc"),
+                      ("projector_ms", "step.project"),
+                      ("rfo_step_ms", "step.solve"),
+                      ("update_ms", "step.update")):
+        out[key] = names[span][1] / 1e6 / reps
+    out["span_self_ms_per_step"] = {k: v[2] / 1e6 / reps
+                                    for k, v in names.items()}
+    out["syncs_per_step"] = sum(v[3] for v in names.values()) / reps
     a_band = torch.randn(b, band, band, dtype=x.dtype, device=x.device)
     a_band = 0.5 * (a_band + a_band.mT)
     out["kernel_band_shape_ms"] = host_ms(

@@ -16,6 +16,8 @@ import math
 import torch
 
 from multioptpy_tpu_torch.device import bmv
+from multioptpy_tpu_torch.logging_utils import spanned
+from multioptpy_tpu_torch.ops.eigh64 import eigh_fast
 
 _POLE_EPS = 1e-10          # mode participates in the image flip
 SMALL_EIGVAL_THRESH = 1e-6  # mode excluded from the step
@@ -114,6 +116,7 @@ def rfo_extra_sweeps(dtype):
     return RFO_F64_EXTRA_SWEEPS if dtype == torch.float64 else 1
 
 
+@spanned("eigh")
 def _eigh(h, impl, extra_sweeps=1):
     """Symmetric eigendecomposition dispatch for batched h (B, D, D), with
     sweeps = `jacobi_sweeps_for(D)`:
@@ -135,7 +138,7 @@ def _eigh(h, impl, extra_sweeps=1):
     a callable -- called as impl(h, sweeps + `extra_sweeps`), the kernel
                routes' arguments (`python3 -m multioptpy_tpu_torch.flagship`
                passes one that keeps the matrices).
-    anything else -- torch.linalg.eigh."""
+    anything else -- torch.linalg.eigh (`eigh_fast`)."""
     sweeps = jacobi_sweeps_for(h.shape[-1])
     if callable(impl):
         return impl(h, sweeps + extra_sweeps)
@@ -147,7 +150,7 @@ def _eigh(h, impl, extra_sweeps=1):
     if impl == "jacobi":
         from multioptpy_tpu_torch.ops.jacobi import jacobi_eigh
         return jacobi_eigh(h, sweeps=sweeps)
-    return torch.linalg.eigh(h)
+    return eigh_fast(h)
 
 
 def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
@@ -326,7 +329,7 @@ def rfo_classic_step(gradient, hessian, mode="min"):
     aug[:, :n, :n] = 0.5 * (hessian + hessian.mT)
     aug[:, :n, n] = gradient
     aug[:, n, :n] = gradient
-    _, u = torch.linalg.eigh(aug)
+    _, u = eigh_fast(aug)
     vec = u[..., 0] if mode == "min" else u[..., n]
     denom = vec[:, n]
     safe = torch.where(denom.abs() > 1e-12, denom, torch.where(
