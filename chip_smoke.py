@@ -497,6 +497,23 @@ def phase_kernel_check(jc, card):
     rows = [check_row(jc, gen, b, d, dtype, where, card,
                       timed=(b, d, dtype, where) in cases)
             for b, d, dtype, where in cases + extra]
+    # the batches `eigh_fast` sends to the kernel in the benchmark's cells
+    # (ops/eigh64.eigh_route), at the route's sweep count
+    from multioptpy_tpu_torch.ops.eigh64 import k1_sweeps
+    routed = [(16, 104, "n-octane Loewdin of 16 conformers"),
+              (2496, 104, "n-octane Loewdin, exact Hessians of 16"),
+              (16, 78, "n-octane RS-RFO step of 16 conformers"),
+              (16, 54, "Diels-Alder RS-RFO step of 16 orientations"),
+              (16, 72, "Diels-Alder Loewdin of 16 orientations"),
+              (1728, 72, "Diels-Alder Loewdin, exact Hessians of 16"),
+              (108, 72, "Diels-Alder Loewdin, exact Hessian"),
+              (156, 104, "n-octane Loewdin, exact Hessian"),
+              (16, 28, "n-octane EEQ of 16 conformers"),
+              (2496, 28, "n-octane EEQ, exact Hessians of 16"),
+              (1728, 20, "Diels-Alder EEQ, exact Hessians of 16")]
+    rows += [check_row(jc, gen, b, d, torch.float64, f"eigh_fast: {where}",
+                       card, sweeps=k1_sweeps(d, torch.float64))
+             for b, d, where in routed]
 
     # seeded_eigh (ops/eigh64): f32 seed through the kernel, f64 polish
     from multioptpy_tpu_torch.ops.eigh64 import seeded_eigh

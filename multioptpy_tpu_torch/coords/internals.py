@@ -8,9 +8,9 @@ transforms, the Gauss-Newton back-transform, the delocalized (DIC) basis,
 vector q(x) is one vectorized function of the geometry, so B = dq/dx comes
 from `torch.func.jacfwd` per member of the batch, as the reference's
 `jax.jacfwd`, and the curvature term from `torch.func.hessian`. The
-eigendecompositions are `eigh_fast` (`torch.linalg.eigh`), the reference's
-CPU branch. `cartesian_to_z_matrix` and `local_force_constants` take one
-structure, as the reference's.
+eigendecompositions are `eigh_fast` (the reference's `jnp.linalg.eigh`; K1
+or torch.linalg.eigh by shape on the card). `cartesian_to_z_matrix` and
+`local_force_constants` take one structure, as the reference's.
 
 Primitive index arrays are static per molecule (numpy, 0-based).
 """

@@ -1,30 +1,63 @@
 """f64 symmetric eigensolver helpers and their closed-form derivatives.
 
 Counterpart of `multioptpy_tpu/ops/eigh64.py`. Hopper has native FP64, so
-`eigh_fast` is `torch.linalg.eigh` and `solve_f64safe` a plain solve (the
-reference's CPU branches). `seeded_eigh` keeps the f32-seed + f64 Jacobi
-polish; its f32 seed is the Hopper Jacobi kernel on CUDA, as the TPU branch
-used the Pallas kernel. `eigh_solve` and `inv_sqrt_psd` are
+`solve_f64safe` is a plain solve (the reference's CPU branch). `eigh_fast`,
+the reference's `jnp.linalg.eigh`, takes whichever exact route is faster
+at the call's shape (`eigh_route`): the Hopper Jacobi kernel (K1,
+`ops/jacobi_cuda.py`) for a CUDA batch of at least
+`jacobi_cuda.b_min(D)` matrices, all of them in one launch, else
+torch.linalg.eigh, which cuSOLVER runs matrix by matrix on the card and
+LAPACK on the CPU. `seeded_eigh` keeps the f32-seed + f64 Jacobi polish;
+its f32 seed is the Hopper Jacobi kernel on CUDA, as the TPU branch used
+the Pallas kernel. `eigh_solve` and `inv_sqrt_psd` are
 `torch.autograd.Function`s whose backward passes are the transposes of the
 reference's JVP rules. `eigh_fast` is the port's one call of
 torch.linalg.eigh on its eigensolver paths: an `eigh` span that counts the
-call as "cusolver" on the card, "cpu" on the CPU.
+call as "cusolver" on the card, "cpu" on the CPU; K1's `launch` counts the
+calls it takes.
 """
+
+import math
 
 import torch
 
 from multioptpy_tpu_torch.logging_utils import count_eigh, spanned
-from multioptpy_tpu_torch.ops.jacobi import (jacobi_sweeps, pad_to_even,
+from multioptpy_tpu_torch.ops.jacobi import (jacobi_sweeps, jacobi_sweeps_for,
+                                              pad_to_even, rfo_extra_sweeps,
                                               sort_and_trim)
+from multioptpy_tpu_torch.ops.jacobi_cuda import (b_min, jacobi_eigh_auto,
+                                                   jacobi_eigh_cuda, max_dim)
 
 
 def _seed_eigh_f32(a32):
     """f32 eigendecomposition: the Jacobi kernel on CUDA, LAPACK on the CPU."""
     if a32.is_cuda:
-        from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_auto
-
         return jacobi_eigh_auto(a32, sweeps=8)
     return eigh_fast(a32)
+
+
+def k1_sweeps(d, dtype):
+    """The sweeps `eigh_fast` gives K1 at dimension d: the f64 RS-RFO
+    count (14 at D = 54, 15 at D = 72-104, 13 at D = 28), which converges
+    shifted, TR/rot-projected Hessians, the hardest matrices the route
+    receives (tests/test_torch_rfo.py pins it)."""
+    return jacobi_sweeps_for(d) + rfo_extra_sweeps(dtype)
+
+
+def eigh_route(device_type, dtype, d, b, tracks_grad):
+    """Where `eigh_fast` sends b matrices of dimension d: "cpu" (LAPACK)
+    off the card; on it "k1" where K1 is faster (f32 or f64, even-padded
+    D at most `max_dim`, b at least `b_min`), else "cusolver". A call
+    whose input autograd tracks keeps torch.linalg.eigh's backward."""
+    if device_type != "cuda":
+        return "cpu"
+    if tracks_grad or dtype not in (torch.float32, torch.float64):
+        return "cusolver"
+    d_even = d + d % 2
+    if d_even > max_dim(dtype):
+        return "cusolver"
+    need = b_min(d_even, dtype)
+    return "k1" if need is not None and b >= need else "cusolver"
 
 
 @spanned("eigh")
@@ -49,9 +82,16 @@ def seeded_eigh(a, polish_sweeps=2):
 
 @spanned("eigh")
 def eigh_fast(a, polish_sweeps=2):
-    """The eigh entry point of the f64 hot paths: torch.linalg.eigh."""
+    """The eigh entry point of the f64 hot paths, ascending (w, v) of
+    symmetric a (..., D, D): K1 at `k1_sweeps` where `eigh_route` says
+    "k1", else torch.linalg.eigh."""
     del polish_sweeps
-    count_eigh("cusolver" if a.is_cuda else "cpu", a)
+    d = a.shape[-1]
+    route = eigh_route(a.device.type, a.dtype, d, math.prod(a.shape[:-2]),
+                       torch.is_grad_enabled() and a.requires_grad)
+    if route == "k1":
+        return jacobi_eigh_cuda(a, k1_sweeps(d, a.dtype))
+    count_eigh(route, a)
     return torch.linalg.eigh(a)
 
 

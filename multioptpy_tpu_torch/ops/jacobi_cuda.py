@@ -13,7 +13,9 @@ loaded with ctypes. Nothing compiles at import time.
 PyTorch version `jacobi_eigh_plain` (the same algorithm: circle-method
 pairs, all rotations of a round in parallel, re-symmetrized once per sweep)
 only on a CPU tensor; `launch` is its raw launch by a given plan (the
-scan of the variants' crossover forces one). `launch_plan`,
+scan of the variants' crossover forces one). `b_min` reads
+`EIGH_MIN_BATCH`, the measured batch from which `ops/eigh64.eigh_fast`
+sends a call here rather than to torch.linalg.eigh. `launch_plan`,
 `pair_indices`, `thread_blocks` and
 `symmetrize_pairs` repeat the kernel's index arithmetic and launch shape in
 Python, so that the CPU tests can check them. `jacobi_eigh_auto` keeps the
@@ -57,6 +59,19 @@ H100_SMS = 132
 # crossover elsewhere: at D = 32 from 8 matrices per SM, at D = 24 beyond
 # the largest batch scanned (PERF.md, section 6)
 WARP_MIN_BATCH_PER_SM = 12
+# the smallest batch from which `ops/eigh64.eigh_fast` sends a (B, D, D)
+# call to the kernel, by dtype and even D: from there on the wrapper
+# (padding and sort included), at `eigh64.k1_sweeps(D)`, beat
+# torch.linalg.eigh at every batch scanned (B = 1, 2, 3, 4, 6, 8, 16;
+# `python3 -m multioptpy_tpu_torch.scan_jacobi --crossover` on an H100
+# 80GB HBM3 at 700 W, PERF.md section 6). At D <= 32 the kernel won from
+# one matrix on (at D = 28 by 5-12 %); at B = 1 cuSOLVER took 0.74 ms at
+# D = 54 against the kernel's 0.76, 1.41 against 3.36 at D = 104.
+EIGH_MIN_BATCH = {
+    torch.float64: {20: 1, 28: 1, 54: 2, 56: 2, 72: 2, 78: 2, 80: 2, 104: 3,
+                    120: 6},
+    torch.float32: {24: 1, 32: 1},
+}
 
 
 class LaunchPlan(NamedTuple):
@@ -93,6 +108,20 @@ def max_dim(dtype):
     while smem_bytes(d + 2, itemsize) <= SMEM_LIMIT:
         d += 2
     return d
+
+
+def b_min(d, dtype):
+    """`EIGH_MIN_BATCH` at even D d: the scanned entry, between two scanned
+    D the larger of the two; None (no batch goes to the kernel) outside
+    the scanned D."""
+    table = EIGH_MIN_BATCH.get(dtype, {})
+    if d in table:
+        return table[d]
+    below = [k for k in table if k < d]
+    above = [k for k in table if k > d]
+    if not below or not above:
+        return None
+    return max(table[max(below)], table[min(above)])
 
 
 def launch_plan(b, d, dtype, sm_count=H100_SMS):

@@ -1,49 +1,71 @@
 #!/usr/bin/env python3
-"""Where the Jacobi kernel's warp variant overtakes its block variant, on one
-CUDA card.
+"""Two crossovers of the Jacobi kernel (K1) on one CUDA card.
 
-Run from the repository root:  python3 -m multioptpy_tpu_torch.scan_jacobi
+Run from the repository root:
 
-At D = 24 and 32 (slice A's RFO step and SQM band), in f32 and f64, and
-batches from 256 to 12288 random symmetric matrices, 7 sweeps, it times each
-variant (the kernel launch alone, without the wrapper's sort; CUDA events
-over repeated calls after a warm call) and torch.linalg.eigh, and prints one
-JSON line per (dtype, D, B) with the variant `launch_plan` picks for the
-card, then the card's name and power limit. Each variant is forced through
-`launch_plan` itself: an SM count of 0 makes every batch fill the card (the
-warp variant), one of B makes none do (the block variant). The warp
-variant's threshold, WARP_MIN_BATCH_PER_SM in ops/jacobi_cuda.py, is read
-from these lines.
+    python3 -m multioptpy_tpu_torch.scan_jacobi              # the variants
+    python3 -m multioptpy_tpu_torch.scan_jacobi --crossover  # K1 or library
+
+Without arguments: where the kernel's warp variant overtakes its block
+variant. At D = 24 and 32 (slice A's RFO step and SQM band), in f32 and f64,
+and batches from 256 to 12288 random symmetric matrices, 7 sweeps, it times
+each variant (the kernel launch alone, without the wrapper's sort; CUDA
+events over repeated calls after a warm call) and torch.linalg.eigh, and
+prints one JSON line per (dtype, D, B) with the variant `launch_plan` picks
+for the card, then the card's name and power limit. Each variant is forced
+through `launch_plan` itself: an SM count of 0 makes every batch fill the
+card (the warp variant), one of B makes none do (the block variant). The
+warp variant's threshold, WARP_MIN_BATCH_PER_SM in ops/jacobi_cuda.py, is
+read from these lines.
+
+With --crossover: from which batch `eigh_fast` should send a call to K1.
+In f64 at D = 20, 28, 54, 56, 72, 78, 80, 104 and 120 and in f32 at D = 24
+and 32, at B = 1, 2, 3, 4, 6, 8 and 16 random symmetric matrices, it times
+the wrapper `jacobi_eigh_cuda` (padding and sort included) at the route's
+sweep count (`eigh64.k1_sweeps`) and torch.linalg.eigh (the median of three
+CUDA-event means each), one JSON line per (dtype, D, B), then one line per
+(dtype, D) with `b_min`: the smallest scanned batch from which K1 is
+faster at every larger scanned batch (null if at none), beside the entry
+of EIGH_MIN_BATCH in ops/jacobi_cuda.py that holds it.
 """
 
+import argparse
 import json
+import statistics
 import subprocess
 
 import torch
 
 from multioptpy_tpu_torch.device import cuda_ms, resolve_device
 from multioptpy_tpu_torch.ops import jacobi_cuda as jc
+from multioptpy_tpu_torch.ops.eigh64 import k1_sweeps
 
 BATCHES = (256, 528, 1056, 1584, 2112, 4224, 12288)
 SWEEPS = 7
+CROSSOVER_DIMS = {torch.float64: (20, 28, 54, 56, 72, 78, 80, 104, 120),
+                  torch.float32: (24, 32)}
+CROSSOVER_BATCHES = (1, 2, 3, 4, 6, 8, 16)
 
 
-def main():
-    dev = resolve_device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True, timeout=60).stdout.strip()
+def _random_sym(gen, b, d, dtype, dev):
+    m = torch.randn(b, d, d, generator=gen, dtype=torch.float64)
+    return (0.5 * (m + m.mT)).to(dtype).to(dev)
+
+
+def _dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def scan_variants(dev, card, gen):
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
-    gen = torch.Generator().manual_seed(0)
     for dtype in (torch.float32, torch.float64):
         for d in (24, 32):
             for b in BATCHES:
-                m = torch.randn(b, d, d, generator=gen, dtype=torch.float64)
-                a = (0.5 * (m + m.mT)).to(dtype).to(dev)
+                a = _random_sym(gen, b, d, dtype, dev)
                 warp = jc.launch_plan(b, d, dtype, sm_count=0)
                 block = jc.launch_plan(b, d, dtype, sm_count=b)
                 print(json.dumps({
-                    "d": d, "batch": b, "dtype": str(dtype).split(".")[-1],
+                    "d": d, "batch": b, "dtype": _dtype_name(dtype),
                     "sweeps": SWEEPS,
                     "picked": jc.launch_plan(b, d, dtype, sm_count).variant,
                     "warp_ms": cuda_ms(lambda: jc.launch(a, SWEEPS, warp),
@@ -53,6 +75,45 @@ def main():
                     "library_ms": cuda_ms(lambda: torch.linalg.eigh(a),
                                           reps=3),
                     "card": card}), flush=True)
+
+
+def scan_crossover(dev, card, gen):
+    for dtype, dims in CROSSOVER_DIMS.items():
+        for d in dims:
+            sweeps = k1_sweeps(d, dtype)
+            k1_wins = []
+            for b in CROSSOVER_BATCHES:
+                a = _random_sym(gen, b, d, dtype, dev)
+                k1 = statistics.median(
+                    cuda_ms(lambda: jc.jacobi_eigh_cuda(a, sweeps))
+                    for _ in range(3))
+                lib = statistics.median(
+                    cuda_ms(lambda: torch.linalg.eigh(a)) for _ in range(3))
+                k1_wins.append(k1 < lib)
+                print(json.dumps({
+                    "d": d, "batch": b, "dtype": _dtype_name(dtype),
+                    "sweeps": sweeps, "k1_ms": k1, "library_ms": lib,
+                    "card": card}), flush=True)
+            wins_from = [b for i, b in enumerate(CROSSOVER_BATCHES)
+                         if all(k1_wins[i:])]
+            print(json.dumps({
+                "d": d, "dtype": _dtype_name(dtype), "sweeps": sweeps,
+                "b_min": wins_from[0] if wins_from else None,
+                "table": jc.EIGH_MIN_BATCH[dtype].get(d), "card": card}),
+                flush=True)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--crossover", action="store_true",
+                        help="K1 against torch.linalg.eigh at small batches")
+    args = parser.parse_args()
+    dev = resolve_device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    gen = torch.Generator().manual_seed(0)
+    (scan_crossover if args.crossover else scan_variants)(dev, card, gen)
     print(card)
 
 

@@ -5,8 +5,8 @@ Counterpart of `multioptpy_tpu/steppers/enhancements.py`. Each is a
 function transforming a proposed move; the vector axis is the last one and
 a leading batch axis B runs through every argument. The fixed-trip loops of
 the reference (`lax.fori_loop`, `lax.scan`) are Python loops of batched
-selects. The eigendecompositions are `eigh_fast` (`torch.linalg.eigh`), the
-reference's CPU branch.
+selects. The eigendecompositions are `eigh_fast` (the reference's
+`jnp.linalg.eigh`; K1 or torch.linalg.eigh by shape on the card).
 """
 
 import torch

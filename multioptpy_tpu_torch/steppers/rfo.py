@@ -18,20 +18,10 @@ import torch
 from multioptpy_tpu_torch.device import bmv
 from multioptpy_tpu_torch.logging_utils import spanned
 from multioptpy_tpu_torch.ops.eigh64 import eigh_fast
+from multioptpy_tpu_torch.ops.jacobi import jacobi_sweeps_for, rfo_extra_sweeps
 
 _POLE_EPS = 1e-10          # mode participates in the image flip
 SMALL_EIGVAL_THRESH = 1e-6  # mode excluded from the step
-# sweeps the Jacobi routes add to `jacobi_sweeps_for(D)` for an f64 RS-RFO
-# Hessian: TR/rot-projected Hessians with the projected-out block at 1e3
-# and clustered soft modes (model Hessians, their quasi-Newton updates)
-# converge slowly. Over the 257 RFO Hessians of a reduced flagship AutoTS
-# run (Diels-Alder, D = 54) the largest off-diagonal left, relative to
-# max|a|, is 8.3e-6 to 3.4e-5 after 8 sweeps (the count the band keeps),
-# 2.9e-11 to 4.1e-10 after 12 and below 4e-13 after 13 over three runs,
-# one on an H100 and two on CPUs (`python3 -m multioptpy_tpu_torch.flagship`);
-# this takes 14 (ROADMAP Queue 3, F3). f32 keeps one extra sweep: its
-# rounding floor comes first.
-RFO_F64_EXTRA_SWEEPS = 7
 
 
 def _leftmost_secular_root(poles, g2, valid, n_iter=80):
@@ -104,18 +94,6 @@ def _rfo_step_grid(d_im, g_im, valid, trust_radius, alpha0=1.0,
     return step, lam
 
 
-def jacobi_sweeps_for(d):
-    """The Jacobi sweep count `_eigh` uses at dimension d; it grows
-    logarithmically: 5 + ceil(log2(max(d, 16) / 16)). The kernel runs one
-    more."""
-    return 5 + max(0, math.ceil(math.log2(max(d, 16) / 16.0)))
-
-
-def rfo_extra_sweeps(dtype):
-    """The kernel routes' extra sweeps for an RS-RFO Hessian of `dtype`."""
-    return RFO_F64_EXTRA_SWEEPS if dtype == torch.float64 else 1
-
-
 @spanned("eigh")
 def _eigh(h, impl, extra_sweeps=1):
     """Symmetric eigendecomposition dispatch for batched h (B, D, D), with
@@ -138,7 +116,8 @@ def _eigh(h, impl, extra_sweeps=1):
     a callable -- called as impl(h, sweeps + `extra_sweeps`), the kernel
                routes' arguments (`python3 -m multioptpy_tpu_torch.flagship`
                passes one that keeps the matrices).
-    anything else -- torch.linalg.eigh (`eigh_fast`)."""
+    anything else -- `eigh_fast` (ops/eigh64.py: K1 at batches where the
+               card's crossover says it wins, else torch.linalg.eigh)."""
     sweeps = jacobi_sweeps_for(h.shape[-1])
     if callable(impl):
         return impl(h, sweeps + extra_sweeps)

@@ -127,3 +127,87 @@ def test_solve_f64safe_is_plain_solve():
     x_ref = jax.vmap(ref.solve_f64safe)(jnp.asarray(a.numpy()),
                                      jnp.asarray(b.numpy()))
     np.testing.assert_allclose(x.numpy(), np.asarray(x_ref), rtol=1e-12)
+
+
+def test_eigh_route_sends_batches_from_b_min_to_k1():
+    """On the card, a batch of at least b_min(D) f32 or f64 matrices with
+    D up to max_dim goes to K1, a smaller one to cuSOLVER; an odd D is
+    looked up at its even padding."""
+    from multioptpy_tpu_torch.ops.jacobi_cuda import EIGH_MIN_BATCH, max_dim
+
+    routed = [(dtype, d, need) for dtype, table in EIGH_MIN_BATCH.items()
+              for d, need in table.items()]
+    assert routed
+    for dtype, d, need in routed:
+        assert d <= max_dim(dtype)
+        for b in (need, need + 1, 16, 2496):
+            assert port.eigh_route("cuda", dtype, d, b, False) == "k1"
+            assert port.eigh_route("cuda", dtype, d - 1, b, False) == "k1"
+        assert port.eigh_route("cuda", dtype, d, need - 1,
+                               False) == "cusolver"
+
+
+@pytest.mark.parametrize("d", [54, 78, 104])
+def test_eigh_route_keeps_one_matrix_on_cusolver(d):
+    """B = 1 at the single cells' RFO and Loewdin dimensions stays on
+    cuSOLVER, which is faster there; so does an empty batch."""
+    assert port.eigh_route("cuda", torch.float64, d, 1, False) == "cusolver"
+    assert port.eigh_route("cuda", torch.float64, d, 0, False) == "cusolver"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eigh_route_keeps_large_dims_grad_and_cpu_off_k1(dtype):
+    """Past K1's shared-memory limit, for a grad-tracked input (K1 has no
+    backward), for other dtypes and off the card, no batch goes to K1."""
+    from multioptpy_tpu_torch.ops.jacobi_cuda import max_dim
+
+    top = max_dim(dtype)
+    for b in (1, 16, 2496):
+        assert port.eigh_route("cuda", dtype, top + 1, b, False) == "cusolver"
+        assert port.eigh_route("cuda", dtype, top + 2, b, False) == "cusolver"
+        assert port.eigh_route("cuda", dtype, 104, b, True) == "cusolver"
+        assert port.eigh_route("cuda", torch.float16, 54, b,
+                               False) == "cusolver"
+        for d in (28, 54, 104, top + 2):
+            assert port.eigh_route("cpu", dtype, d, b, False) == "cpu"
+
+
+def test_b_min_takes_the_larger_neighbour_between_scanned_dims():
+    """Between two scanned D the larger b_min of the two; outside the
+    scanned D never K1."""
+    from multioptpy_tpu_torch.ops import jacobi_cuda as jc
+
+    for dtype, table in jc.EIGH_MIN_BATCH.items():
+        dims = sorted(table)
+        for lo, hi in zip(dims, dims[1:]):
+            for d in range(lo + 2, hi, 2):
+                assert jc.b_min(d, dtype) == max(table[lo], table[hi]), (
+                    dtype, d)
+        assert jc.b_min(dims[0] - 2, dtype) is None
+        assert jc.b_min(dims[-1] + 2, dtype) is None
+
+
+def test_cpu_eigh_fast_is_lapack_counted_as_cpu():
+    """On the CPU eigh_fast is torch.linalg.eigh bit for bit, at any
+    batch, and the recorder counts the call as "cpu"."""
+    from multioptpy_tpu_torch import logging_utils as lu
+
+    rng = np.random.default_rng(8)
+    a = torch.as_tensor(_rand_sym(rng, 16, 78))
+    t = lu.StageTimer()
+    with lu.recording(t), lu.span("caller"):
+        w, v = port.eigh_fast(a)
+    w_ref, v_ref = torch.linalg.eigh(a)
+    assert torch.equal(w, w_ref) and torch.equal(v, v_ref)
+    assert dict(t.eigh_calls) == {("caller", "cpu", 16, 78, "float64"): 1}
+
+
+def test_k1_sweeps_are_the_rs_rfo_count():
+    """One sweep count for every caller: the f64 RS-RFO step's."""
+    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
+                                                   rfo_extra_sweeps)
+
+    for d, want in ((28, 13), (54, 14), (56, 14), (72, 15), (78, 15),
+                    (104, 15)):
+        assert port.k1_sweeps(d, torch.float64) == want
+        assert want == jacobi_sweeps_for(d) + rfo_extra_sweeps(torch.float64)
