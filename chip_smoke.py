@@ -510,7 +510,8 @@ def phase_kernel_check(jc, card):
               (156, 104, "n-octane Loewdin, exact Hessian"),
               (16, 28, "n-octane EEQ of 16 conformers"),
               (2496, 28, "n-octane EEQ, exact Hessians of 16"),
-              (1728, 20, "Diels-Alder EEQ, exact Hessians of 16")]
+              (1728, 20, "Diels-Alder EEQ, exact Hessians of 16"),
+              (588, 99, "C32H66 EEQ, exact Hessian")]
     rows += [check_row(jc, gen, b, d, torch.float64, f"eigh_fast: {where}",
                        card, sweeps=k1_sweeps(d, torch.float64))
              for b, d, where in routed]

@@ -14,7 +14,10 @@ Every calculator's `energy_and_gradient`, `hessian` and
 `numerical_hessian` run inside a `calc` span (a subclass's own are wrapped
 when the class is defined); the outermost of them counts the structures
 whose energy and gradient it evaluates (`gradients`), the seminumerical
-Hessian its 6N displaced structures per member.
+Hessian its 6N displaced structures per member. The seminumerical Hessian
+opens a `calc.hessian` span around its displaced batch, in which the
+batch's gradient opens no `calc` of its own, and counts one `hessians` a
+member.
 """
 
 import functools
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 
 from multioptpy_tpu_torch.device import resolve_device
-from multioptpy_tpu_torch.logging_utils import count, current, span
+from multioptpy_tpu_torch.logging_utils import count, current, span, spanned
 
 _SPANNED = ("energy_and_gradient", "hessian", "numerical_hessian")
 
@@ -38,7 +41,7 @@ def _calc_span(fn):
     @functools.wraps(fn)
     def call(self, coords, z, *args, **kwargs):
         rec = current()
-        if rec is None:
+        if rec is None or rec.innermost() == "calc.hessian":
             return fn(self, coords, z, *args, **kwargs)
         with rec.span("calc") as opened:
             if gradients and opened is not None:
@@ -98,6 +101,7 @@ class Calculator:
         return torch.func.vmap(torch.func.hessian(one))(
             coords.detach().reshape(b, 3 * n))
 
+    @spanned("calc.hessian")
     def numerical_hessian(self, coords, z, step=1e-3):
         """Central-difference Hessians (B, 3N, 3N) of the analytic gradient:
         all 6N displaced gradients of all B structures in one batch."""
@@ -107,6 +111,7 @@ class Calculator:
         flat = coords.reshape(b, 1, n3)
         disp = torch.cat([flat + eye, flat - eye], dim=1)   # (B, 6N, 3N)
         count("gradients", b * 2 * n3)
+        count("hessians", b)
         g = self.energy_and_gradient(disp.reshape(b * 2 * n3, n, 3), z)[1]
         g = g.reshape(b, 2, n3, n3)
         h = (g[:, 0] - g[:, 1]) / (2.0 * step)

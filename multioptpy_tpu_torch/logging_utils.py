@@ -155,10 +155,11 @@ class StageTimer:
     ns, syncs] in `paths` (`by_name` sums them by span name), the spans as
     (path, start ns, end ns, job id, step index) in `events` (the first
     200,000; `dropped` counts the rest), the counters `gradients`,
-    `step_structures` and `member_steps` in `counters`, eigensolver calls
-    by (caller span, route, B, D, dtype) in `eigh_calls`, and (job id, B,
-    N, method) of each job in `jobs`. `clock` returns ns; tests pass a
-    fake one. One thread records into a recorder at a time."""
+    `hessians`, `step_structures` and `member_steps` in `counters`,
+    eigensolver calls by (caller span, route, B, D, dtype) in
+    `eigh_calls`, and (job id, B, N, method) of each job in `jobs`.
+    `clock` returns ns; tests pass a fake one. One thread records into a
+    recorder at a time."""
 
     def __init__(self, clock=time.time_ns):
         self.totals = collections.defaultdict(float)
@@ -210,9 +211,13 @@ class StageTimer:
     def span(self, name):
         """A span of this recorder (opened by `with`); none inside a span
         of the same name."""
-        if self._stack and self._stack[-1].name == name:
+        if self.innermost() == name:
             return _OFF
         return _Span(self, name)
+
+    def innermost(self):
+        """The name of the innermost open span, or None."""
+        return self._stack[-1].name if self._stack else None
 
     def by_name(self):
         """{span name: [count, inclusive ns, self ns, syncs]}, summed over

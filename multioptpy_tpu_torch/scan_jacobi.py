@@ -19,14 +19,15 @@ warp variant's threshold, WARP_MIN_BATCH_PER_SM in ops/jacobi_cuda.py, is
 read from these lines.
 
 With --crossover: from which batch `eigh_fast` should send a call to K1.
-In f64 at D = 20, 28, 54, 56, 72, 78, 80, 104 and 120 and in f32 at D = 24
-and 32, at B = 1, 2, 3, 4, 6, 8 and 16 random symmetric matrices, it times
-the wrapper `jacobi_eigh_cuda` (padding and sort included) at the route's
-sweep count (`eigh64.k1_sweeps`) and torch.linalg.eigh (the median of three
-CUDA-event means each), one JSON line per (dtype, D, B), then one line per
-(dtype, D) with `b_min`: the smallest scanned batch from which K1 is
-faster at every larger scanned batch (null if at none), beside the entry
-of EIGH_MIN_BATCH in ops/jacobi_cuda.py that holds it.
+In f64 at D = 20, 28, 54, 56, 72, 78, 80, 100, 104 and 120 and in f32 at
+D = 24 and 32, at B = 1, 2, 3, 4, 6, 8 and 16 random symmetric matrices, it
+times the wrapper `jacobi_eigh_cuda` (padding and sort included) at the
+route's sweep count (`eigh64.k1_sweeps`) and torch.linalg.eigh (the median
+of three CUDA-event means each), one JSON line per (dtype, D, B), then one
+line per (dtype, D) with `b_min`: the smallest scanned batch from which K1
+is faster at every larger scanned batch (null if at none), beside the
+batch the route takes there (`jacobi_cuda.b_min`: the entry of
+EIGH_MIN_BATCH, or between two entries the larger).
 """
 
 import argparse
@@ -42,7 +43,8 @@ from multioptpy_tpu_torch.ops.eigh64 import k1_sweeps
 
 BATCHES = (256, 528, 1056, 1584, 2112, 4224, 12288)
 SWEEPS = 7
-CROSSOVER_DIMS = {torch.float64: (20, 28, 54, 56, 72, 78, 80, 104, 120),
+CROSSOVER_DIMS = {torch.float64: (20, 28, 54, 56, 72, 78, 80, 100, 104,
+                                   120),
                   torch.float32: (24, 32)}
 CROSSOVER_BATCHES = (1, 2, 3, 4, 6, 8, 16)
 
@@ -99,7 +101,7 @@ def scan_crossover(dev, card, gen):
             print(json.dumps({
                 "d": d, "dtype": _dtype_name(dtype), "sweeps": sweeps,
                 "b_min": wins_from[0] if wins_from else None,
-                "table": jc.EIGH_MIN_BATCH[dtype].get(d), "card": card}),
+                "table": jc.b_min(d, dtype), "card": card}),
                 flush=True)
 
 
