@@ -13,7 +13,17 @@ Phases, each printing one JSON line:
      kernel, the plain version and torch.linalg.eigh (the yardstick; the
      port never calls it below the kernel's size gate) at the main-path
      shapes; then seeded_eigh, whose f32 seed is the kernel, against
-     torch.linalg.eigvalsh.
+     torch.linalg.eigvalsh; then K3, the batched tridiagonal eigensolver
+     past K1's gate (csrc/tridiag_eigh.cu), against its plain version at
+     588 x 392, 1 x 392, 1 x 294 and 16 x 392 f64 (phase_k3_check).
+ 1b. c32h66_start: the main path's K3. The start of a C32H66 job as the
+     benchmark's c32h66.opt1 runs it (98 atoms, SQM2 f64, rfo_fsb from the
+     exact Hessian: 588 displaced gradients in one batch, whose band and
+     Loewdin solves take the "k3" route at 588 x 392), 2 steps through
+     `optimize`, held to the same job with K3's table emptied (those
+     solves on torch.linalg.eigh): energies 1e-10 Ha, coordinates 1e-9
+     Bohr. K3's launch counts are set to 0 just before its job and never
+     again, so the kernels line's K3 launches are the main path's.
   2. slice_a: 256 perturbed S8 rings relaxed together on SQM in f32 with
      rfo_fsb, an exact initial Hessian and eigh_impl="pallas", 100 steps
      (the throughput configuration of examples/04_scale_demo.py, cut from
@@ -276,8 +286,8 @@ each, the plain version as one call after a warm one (the call it is
 compared with), torch.linalg.eigh
 as the wrapper, or as one call after a warm one where a call takes over
 0.1 s. Then
-the kernels line (one entry per variant), the card's name and power
-limit, and last the fixed
+the kernels line (one entry per K1 variant, one for K3), the card's name
+and power limit, and last the fixed
 {"ok": true, "device": ...} line. Any failed check raises: exit code != 0.
 Without a CUDA card the script raises before printing any result.
 """
@@ -537,6 +547,143 @@ def phase_kernel_check(jc, card):
             and seeded["kernel_launches"] == 1):
         raise AssertionError(f"seeded_eigh failed on the card: {seeded}")
     return rows
+
+
+def k3_row(tc, gen, b, d, where, card):
+    """One kernel_check row of K3 (ops/tridiag_cuda.py) on a random f64
+    (b, d, d) batch: values against its plain version on up to three
+    members (the first, middle and last: the plain version's QL chain runs
+    in Python, ~2.5 s a 392 x 392 matrix), reconstruction and orthonormality
+    on all, each within 1e-11 of max|a|; the wrapper and the launch alone
+    (tridiag_cuda.launch: no checks or reshapes) timed as the median of 3
+    groups of CUDA events, the plain version's members once, and
+    torch.linalg.eigh and the bound (9 D^3 operations a matrix at the
+    peak, gpu_bench/roofline/eigh.py's count). Emits the row and raises
+    when K3 disagrees."""
+    from multioptpy_tpu_torch.device import cuda_ms
+
+    a = random_sym(gen, b, d, torch.float64)
+    w, v = tc.tridiag_eigh_cuda(a)
+    torch.cuda.synchronize()
+    scale = max(1.0, a.abs().max().item())
+    members = sorted({0, b // 2, b - 1})
+    t0 = time.perf_counter()
+    w_p = torch.cat([tc.tridiag_eigh_plain(a[k:k + 1].cpu())[0]
+                     for k in members])
+    plain_s = time.perf_counter() - t0
+    eye = torch.eye(d, dtype=torch.float64, device="cuda")
+    row = {"kernel": "k3", "batch": b, "d": d, "dtype": "float64",
+           "where": where,
+           "eig_err_vs_plain": (w[members].cpu() - w_p).abs().max().item(),
+           "reconstruction_err": (torch.einsum("bij,bj,bkj->bik", v, w, v)
+                                  - a).abs().max().item(),
+           "orthonormality_err": (v.mT @ v - eye).abs().max().item(),
+           "scale": scale, "plain_members": len(members)}
+    row["ok"] = (row["eig_err_vs_plain"] <= 1e-11 * scale
+                 and row["reconstruction_err"] <= 1e-11 * scale
+                 and row["orthonormality_err"] <= 1e-11)
+    row["ms"] = median_ms(lambda: tc.tridiag_eigh_cuda(a))
+    a3 = a.contiguous()
+    row["kernel_only_ms"] = median_ms(lambda: tc.launch(a3))
+    row["plain_ms"] = 1e3 * plain_s
+    lib_ms = cuda_ms(lambda: torch.linalg.eigh(a), reps=1)
+    row["library_ms"] = (lib_ms if lib_ms > 100.0 else
+                         median_ms(lambda: torch.linalg.eigh(a)))
+    ops = 9.0 * d ** 3 * b / PEAK_OPS[torch.float64]
+    byt = b * (2 * d * d + d) * 8 / PEAK_BYTES
+    row["bound_ms"] = 1e3 * max(ops, byt)
+    row["bound_by"] = "operations" if ops > byt else "bytes"
+    emit({"phase": "kernel_check", **row, "card": card})
+    if not row["ok"]:
+        raise AssertionError(f"K3 disagrees with its plain version: {row}")
+    return row
+
+
+def phase_k3_check(card):
+    """K3 at C32H66's shapes past K1's gate: the exact Hessian's 588 band
+    and Loewdin matrices, a step's 1 x 392 and 1 x 294 (which the route
+    leaves on cuSOLVER), and a 16-member batch's 16 x 392."""
+    from multioptpy_tpu_torch.ops import tridiag_cuda as tc
+
+    t0 = time.perf_counter()
+    lib_path, log = tc.jacobi_cuda.build(tc.SOURCE)
+    emit({"phase": "build", "library": str(lib_path.relative_to(REPO)),
+          "seconds": time.perf_counter() - t0,
+          "ptxas": [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]})
+    gen = torch.Generator().manual_seed(19)
+    return [k3_row(tc, gen, b, d, where, card) for b, d, where in (
+        (588, 392, "C32H66 band and Loewdin, exact Hessian"),
+        (1, 392, "C32H66 band and Loewdin, a step"),
+        (1, 294, "C32H66 RS-RFO step"),
+        (16, 392, "C32H66 band of 16 members"))]
+
+
+def phase_c32h66_start(jc, card):
+    """c32h66.opt1's job start on the card (module docstring, 1b). The job
+    through K3 runs second, each after a warm gradient; K1's and K3's
+    counts are set to 0 just before it. Returns its K1 launches."""
+    from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
+    from multioptpy_tpu_torch.io.fixtures import alkane_chain
+    from multioptpy_tpu_torch.logging_utils import StageTimer, recording
+    from multioptpy_tpu_torch.ops import tridiag_cuda as tc
+    from multioptpy_tpu_torch.units import ANGSTROM2BOHR
+
+    c, z = alkane_chain(32)
+    rng = np.random.default_rng(32)
+    x = torch.as_tensor(c + 0.1 * ANGSTROM2BOHR * rng.standard_normal(
+        c.shape), device="cuda")
+    calc = SQM2(device="cuda")
+    cfg = OptimizeConfig(method="rfo_fsb", init_hessian="exact", nsteps=2)
+    table, runs = tc.K3_MIN_BATCH, {}
+    for route in ("cusolver", "k3"):
+        tc.K3_MIN_BATCH = table if route == "k3" else {}
+        try:
+            calc.energy_and_gradient(x[None], z)
+            jc.reset_launches()
+            tc.reset_launches()
+            rec = StageTimer()
+            t0 = time.perf_counter()
+            with recording(rec):
+                res = optimize(calc, x, z, config=cfg, device="cuda")
+            torch.cuda.synchronize()
+            runs[route] = (time.perf_counter() - t0, res, rec.eigh_calls)
+        finally:
+            tc.K3_MIN_BATCH = table
+    launches = dict(jc.jacobi_eigh_cuda.variant_launches)
+    k3_launches = dict(tc.tridiag_eigh_cuda.stage_launches)
+    (lib_s, lib, lib_calls), (k3_s, k3, k3_calls) = runs["cusolver"], \
+        runs["k3"]
+    n_cmp = min(len(lib.energy_history), len(k3.energy_history))
+    out = {
+        "phase": "c32h66_start", "config": "C32H66 SQM2 f64 rfo_fsb exact, "
+                                           "2 steps",
+        "run_s_k3": k3_s, "run_s_cusolver": lib_s,
+        "k3_calls": {f"{b}x{d} {dt} {caller}": n
+                     for (caller, route, b, d, dt), n in k3_calls.items()
+                     if route == "k3"},
+        "k3_calls_with_table_emptied": sum(
+            n for key, n in lib_calls.items() if key[1] == "k3"),
+        "k3_kernel_launches": k3_launches, "kernel_launches": launches,
+        "max_abs_e_diff_vs_cusolver": float(np.abs(
+            k3.energy_history[:n_cmp] - lib.energy_history[:n_cmp]).max()),
+        "max_abs_x_diff_vs_cusolver": float(
+            (k3.coords - lib.coords).abs().max()),
+        "card": card}
+    emit(out)
+    if not (out["k3_calls"] and all(k.startswith("588x392 ")
+                                    for k in out["k3_calls"])
+            and sum(out["k3_calls"].values()) == 2
+            and out["k3_calls_with_table_emptied"] == 0
+            and k3_launches["sytrd"] == 2):
+        raise AssertionError(f"c32h66_start: the start's two 588 x 392 "
+                             f"solves did not take K3: {out}")
+    if not (out["max_abs_e_diff_vs_cusolver"] <= 1e-10
+            and out["max_abs_x_diff_vs_cusolver"] <= 1e-9):
+        raise AssertionError(f"c32h66_start: K3's job differs from "
+                             f"cuSOLVER's: {out}")
+    return launches
 
 
 def s8_ring(radius=4.3, pucker=0.9):
@@ -2275,8 +2422,9 @@ def main():
           "cuda": torch.version.cuda})
     t_start = time.perf_counter()
     rows = phase_kernel_check(jc, card)
-    main_path = [phase_slice_a(jc, card), phase_slice_b(jc, card),
-                 phase_autots(jc, card)[0]]
+    k3_rows = phase_k3_check(card)
+    main_path = [phase_c32h66_start(jc, card), phase_slice_a(jc, card),
+                 phase_slice_b(jc, card), phase_autots(jc, card)[0]]
     full_launches, full_res, full_detail = phase_autots(jc, card, full=True)
     from multioptpy_tpu_torch.flagship import saddle_start
     main_path += [full_launches,
@@ -2312,6 +2460,23 @@ def main():
             "note": "ms (wrapper), kernel_only_ms (launch alone), plain_ms, "
                     "bound_ms, library_ms: one call at each main-path shape "
                     "of this variant, summed"})
+    from multioptpy_tpu_torch.ops.tridiag_cuda import tridiag_eigh_cuda
+    kernels.append({
+        "name": "tridiag_eigh", "route": "cuda",
+        "source": "multioptpy_tpu_torch/csrc/tridiag_eigh.cu",
+        "replaces": None,
+        "launches": tridiag_eigh_cuda.launches,
+        "launches_by_stage": tridiag_eigh_cuda.stage_launches,
+        "max_abs_err": max(r["eig_err_vs_plain"] for r in k3_rows),
+        **{k: sum(r[k] for r in k3_rows) for k in (
+            "ms", "kernel_only_ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": ("operations" if all(r["bound_by"] == "operations"
+                                         for r in k3_rows) else "bytes"),
+        "shapes": [f"{r['batch']}x{r['d']}x{r['d']} float64" for r in k3_rows],
+        "note": "K3 (sytrd, ormtr, steqr): launches are the main path's "
+                "kernel launches (c32h66_start on); ms and the other times "
+                "one call at each row's shape, summed; plain_ms covers up "
+                "to three members a row"})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card)

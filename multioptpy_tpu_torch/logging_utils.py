@@ -399,7 +399,8 @@ def spanned(name):
 
 def count_eigh(route, a):
     """Count one eigensolver call on `a` by `route` ("k1.block",
-    "k1.warp", "cusolver", "cpu", "jacobi") with the current recorder."""
+    "k1.warp", "k3", "cusolver", "cpu", "jacobi") with the current
+    recorder."""
     rec = current()
     if rec is not None:
         rec.count_eigh(route, a)

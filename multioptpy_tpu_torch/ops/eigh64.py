@@ -5,16 +5,20 @@ Counterpart of `multioptpy_tpu/ops/eigh64.py`. Hopper has native FP64, so
 the reference's `jnp.linalg.eigh`, takes whichever exact route is faster
 at the call's shape (`eigh_route`): the Hopper Jacobi kernel (K1,
 `ops/jacobi_cuda.py`) for a CUDA batch of at least
-`jacobi_cuda.b_min(D)` matrices, all of them in one launch, else
-torch.linalg.eigh, which cuSOLVER runs matrix by matrix on the card and
-LAPACK on the CPU. `seeded_eigh` keeps the f32-seed + f64 Jacobi polish;
+`jacobi_cuda.b_min(D)` matrices, all of them in one launch; past K1's
+shared-memory gate the batched tridiagonal eigensolver (K3,
+`ops/tridiag_cuda.py`) for an f64 batch of at least its
+`tridiag_cuda.K3_MIN_BATCH` entry; else torch.linalg.eigh, which cuSOLVER
+runs matrix by matrix on the card and LAPACK on the CPU. `seeded_eigh` keeps
+the f32-seed + f64 Jacobi polish;
 its f32 seed is the Hopper Jacobi kernel on CUDA, as the TPU branch used
 the Pallas kernel. `eigh_solve` and `inv_sqrt_psd` are
 `torch.autograd.Function`s whose backward passes are the transposes of the
 reference's JVP rules. `eigh_fast` is the port's one call of
 torch.linalg.eigh on its eigensolver paths: an `eigh` span that counts the
-call as "cusolver" on the card, "cpu" on the CPU; K1's `launch` counts the
-calls it takes.
+call as "cusolver" on the card, "cpu" on the CPU; K1's `launch` and
+`tridiag_eigh_cuda` count the calls they take ("k1.block", "k1.warp",
+"k3").
 """
 
 import math
@@ -27,6 +31,8 @@ from multioptpy_tpu_torch.ops.jacobi import (jacobi_sweeps, jacobi_sweeps_for,
                                               sort_and_trim)
 from multioptpy_tpu_torch.ops.jacobi_cuda import (b_min, jacobi_eigh_auto,
                                                    jacobi_eigh_cuda, max_dim)
+from multioptpy_tpu_torch.ops import tridiag_cuda
+from multioptpy_tpu_torch.ops.tridiag_cuda import tridiag_eigh_cuda
 
 
 def _seed_eigh_f32(a32):
@@ -47,17 +53,21 @@ def k1_sweeps(d, dtype):
 def eigh_route(device_type, dtype, d, b, tracks_grad):
     """Where `eigh_fast` sends b matrices of dimension d: "cpu" (LAPACK)
     off the card; on it "k1" where K1 is faster (f32 or f64, even-padded
-    D at most `max_dim`, b at least `b_min`), else "cusolver". A call
-    whose input autograd tracks keeps torch.linalg.eigh's backward."""
+    D at most `max_dim`, b at least `b_min`), "k3" where K3 is faster
+    (past K1's gate: b at least `b_min` by K3_MIN_BATCH, which only f64
+    has), else
+    "cusolver". A call whose input autograd tracks keeps
+    torch.linalg.eigh's backward."""
     if device_type != "cuda":
         return "cpu"
     if tracks_grad or dtype not in (torch.float32, torch.float64):
         return "cusolver"
     d_even = d + d % 2
     if d_even > max_dim(dtype):
-        return "cusolver"
-    need = b_min(d_even, dtype)
-    return "k1" if need is not None and b >= need else "cusolver"
+        need, route = b_min(d, dtype, tridiag_cuda.K3_MIN_BATCH), "k3"
+    else:
+        need, route = b_min(d_even, dtype), "k1"
+    return route if need is not None and b >= need else "cusolver"
 
 
 @spanned("eigh")
@@ -84,13 +94,15 @@ def seeded_eigh(a, polish_sweeps=2):
 def eigh_fast(a, polish_sweeps=2):
     """The eigh entry point of the f64 hot paths, ascending (w, v) of
     symmetric a (..., D, D): K1 at `k1_sweeps` where `eigh_route` says
-    "k1", else torch.linalg.eigh."""
+    "k1", K3 where it says "k3", else torch.linalg.eigh."""
     del polish_sweeps
     d = a.shape[-1]
     route = eigh_route(a.device.type, a.dtype, d, math.prod(a.shape[:-2]),
                        torch.is_grad_enabled() and a.requires_grad)
     if route == "k1":
         return jacobi_eigh_cuda(a, k1_sweeps(d, a.dtype))
+    if route == "k3":
+        return tridiag_eigh_cuda(a)
     count_eigh(route, a)
     return torch.linalg.eigh(a)
 

@@ -110,11 +110,12 @@ def max_dim(dtype):
     return d
 
 
-def b_min(d, dtype):
-    """`EIGH_MIN_BATCH` at even D d: the scanned entry, between two scanned
-    D the larger of the two; None (no batch goes to the kernel) outside
-    the scanned D."""
-    table = EIGH_MIN_BATCH.get(dtype, {})
+def b_min(d, dtype, table=None):
+    """The smallest batch a kernel takes at D d by `table` (dtype -> D ->
+    batch; EIGH_MIN_BATCH if None, K3's `tridiag_cuda.K3_MIN_BATCH` past
+    K1's gate): the scanned entry, between two scanned D the larger of the
+    two; None (no batch goes to the kernel) outside the scanned D."""
+    table = (EIGH_MIN_BATCH if table is None else table).get(dtype, {})
     if d in table:
         return table[d]
     below = [k for k in table if k < d]
@@ -216,12 +217,13 @@ def symmetrize_pairs(d):
     return torch.stack([i, (i + delta) % d], dim=-1)
 
 
-def build():
-    """Compile the kernel library if this source has not been built yet.
-    Returns (path, compiler log); the log is empty when it was cached."""
-    key = hashlib.sha256(SOURCE.read_bytes()
+def build(source=SOURCE):
+    """Compile the kernel library of `source` (a file of `csrc/`) if it
+    has not been built yet. Returns (path, compiler log); the log is empty
+    when it was cached."""
+    key = hashlib.sha256(source.read_bytes()
                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"jacobi_eigh_{key}.so"
+    lib_path = BUILD_DIR / f"{source.stem}_{key}.so"
     if lib_path.exists():
         return lib_path, ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -229,10 +231,10 @@ def build():
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        out = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        out = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(source)],
                              capture_output=True, text=True)
         if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{out.stderr}")
+            raise RuntimeError(f"nvcc failed on {source}:\n{out.stderr}")
         os.replace(tmp, lib_path)   # atomic: concurrent builds cannot clash
     finally:
         if os.path.exists(tmp):
@@ -379,7 +381,7 @@ reset_launches()
 @spanned("eigh")
 def jacobi_eigh_auto(h, sweeps=7):
     """`jacobi_eigh_cuda` below the kernel's shared-memory limit,
-    torch.linalg.eigh above it (the reference's shape gate, at the Hopper
+    `eigh64.eigh_fast` above it (the reference's shape gate, at the Hopper
     kernel's own limit rather than the TPU crossover)."""
     d = h.shape[-1] + h.shape[-1] % 2
     if d > max_dim(h.dtype):

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Two crossovers of the Jacobi kernel (K1) on one CUDA card.
+"""The crossovers of the eigensolver kernels (K1, K3) on one CUDA card.
 
 Run from the repository root:
 
     python3 -m multioptpy_tpu_torch.scan_jacobi              # the variants
-    python3 -m multioptpy_tpu_torch.scan_jacobi --crossover  # K1 or library
+    python3 -m multioptpy_tpu_torch.scan_jacobi --crossover  # K1, K3 or library
 
 Without arguments: where the kernel's warp variant overtakes its block
 variant. At D = 24 and 32 (slice A's RFO step and SQM band), in f32 and f64,
@@ -27,7 +27,12 @@ of three CUDA-event means each), one JSON line per (dtype, D, B), then one
 line per (dtype, D) with `b_min`: the smallest scanned batch from which K1
 is faster at every larger scanned batch (null if at none), beside the
 batch the route takes there (`jacobi_cuda.b_min`: the entry of
-EIGH_MIN_BATCH, or between two entries the larger).
+EIGH_MIN_BATCH, or between two entries the larger). Then the same past
+K1's gate for K3 (`tridiag_cuda.tridiag_eigh_cuda`): f64 at D = 122, 200,
+294 and 392 and B = 1, 2, 3, 4, 6, 8, 16 and 588, one line per (D, B) and
+one per D with `b_min3` beside the batch the route takes there
+(`jacobi_cuda.b_min` by `tridiag_cuda.K3_MIN_BATCH`). A
+call that takes over 0.1 s is timed once after a warm call, three times.
 """
 
 import argparse
@@ -39,6 +44,7 @@ import torch
 
 from multioptpy_tpu_torch.device import cuda_ms, resolve_device
 from multioptpy_tpu_torch.ops import jacobi_cuda as jc
+from multioptpy_tpu_torch.ops import tridiag_cuda as tc
 from multioptpy_tpu_torch.ops.eigh64 import k1_sweeps
 
 BATCHES = (256, 528, 1056, 1584, 2112, 4224, 12288)
@@ -47,6 +53,8 @@ CROSSOVER_DIMS = {torch.float64: (20, 28, 54, 56, 72, 78, 80, 100, 104,
                                    120),
                   torch.float32: (24, 32)}
 CROSSOVER_BATCHES = (1, 2, 3, 4, 6, 8, 16)
+K3_DIMS = (122, 200, 294, 392)
+K3_BATCHES = (1, 2, 3, 4, 6, 8, 16, 588)
 
 
 def _random_sym(gen, b, d, dtype, dev):
@@ -96,26 +104,60 @@ def scan_crossover(dev, card, gen):
                     "d": d, "batch": b, "dtype": _dtype_name(dtype),
                     "sweeps": sweeps, "k1_ms": k1, "library_ms": lib,
                     "card": card}), flush=True)
-            wins_from = [b for i, b in enumerate(CROSSOVER_BATCHES)
-                         if all(k1_wins[i:])]
             print(json.dumps({
                 "d": d, "dtype": _dtype_name(dtype), "sweeps": sweeps,
-                "b_min": wins_from[0] if wins_from else None,
+                "b_min": _first_winning(CROSSOVER_BATCHES, k1_wins),
                 "table": jc.b_min(d, dtype), "card": card}),
                 flush=True)
+
+
+def _median_ms(fn):
+    """The median of three CUDA-event means of fn (one call each, after a
+    warm one, where a call takes over 0.1 s)."""
+    reps = 1 if cuda_ms(fn, reps=1) > 100.0 else None
+    return statistics.median(cuda_ms(fn, reps=reps) for _ in range(3))
+
+
+def _first_winning(batches, wins):
+    """The smallest batch from which K wins at every larger one, or None."""
+    wins_from = [b for i, b in enumerate(batches) if all(wins[i:])]
+    return wins_from[0] if wins_from else None
+
+
+def scan_k3(dev, card, gen):
+    for d in K3_DIMS:
+        k3_wins = []
+        for b in K3_BATCHES:
+            a = _random_sym(gen, b, d, torch.float64, dev)
+            k3 = _median_ms(lambda: tc.tridiag_eigh_cuda(a))
+            lib = _median_ms(lambda: torch.linalg.eigh(a))
+            k3_wins.append(k3 < lib)
+            print(json.dumps({"d": d, "batch": b, "dtype": "float64",
+                              "k3_ms": k3, "library_ms": lib, "card": card}),
+                  flush=True)
+        print(json.dumps({"d": d, "dtype": "float64",
+                          "b_min3": _first_winning(K3_BATCHES, k3_wins),
+                          "table": jc.b_min(d, torch.float64,
+                                            tc.K3_MIN_BATCH),
+                          "card": card}), flush=True)
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--crossover", action="store_true",
-                        help="K1 against torch.linalg.eigh at small batches")
+                        help="K1, then K3, against torch.linalg.eigh at "
+                             "small batches")
     args = parser.parse_args()
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     gen = torch.Generator().manual_seed(0)
-    (scan_crossover if args.crossover else scan_variants)(dev, card, gen)
+    if args.crossover:
+        scan_crossover(dev, card, gen)
+        scan_k3(dev, card, gen)
+    else:
+        scan_variants(dev, card, gen)
     print(card)
 
 

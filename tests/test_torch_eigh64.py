@@ -158,13 +158,16 @@ def test_eigh_route_keeps_one_matrix_on_cusolver(d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_eigh_route_keeps_large_dims_grad_and_cpu_off_k1(dtype):
     """Past K1's shared-memory limit, for a grad-tracked input (K1 has no
-    backward), for other dtypes and off the card, no batch goes to K1."""
+    backward), for other dtypes and off the card, no batch goes to K1
+    (past the limit an f64 batch may go to K3 instead:
+    tests/test_torch_eigh_route.py)."""
     from multioptpy_tpu_torch.ops.jacobi_cuda import max_dim
 
     top = max_dim(dtype)
+    past = ("cusolver", "k3") if dtype == torch.float64 else ("cusolver",)
     for b in (1, 16, 2496):
-        assert port.eigh_route("cuda", dtype, top + 1, b, False) == "cusolver"
-        assert port.eigh_route("cuda", dtype, top + 2, b, False) == "cusolver"
+        assert port.eigh_route("cuda", dtype, top + 1, b, False) in past
+        assert port.eigh_route("cuda", dtype, top + 2, b, False) in past
         assert port.eigh_route("cuda", dtype, 104, b, True) == "cusolver"
         assert port.eigh_route("cuda", torch.float16, 54, b,
                                False) == "cusolver"

@@ -5,7 +5,8 @@ kernel to) stands in for the kernel, against torch.linalg.eigh (LAPACK),
 on what the batch cells diagonalize: the Loewdin overlaps of 16 displaced
 n-octane and Diels-Alder structures and a slice of the exact Hessian's
 displaced ones, their EEQ matrices, and the RS-RFO step's TR/rot-projected
-Hessians."""
+Hessians. Past K1's gate the route takes K3 (`ops/tridiag_cuda.py`) from
+its own measured batch, and nowhere else."""
 
 import numpy as np
 import pytest
@@ -16,8 +17,9 @@ from multioptpy_tpu_torch.calculators.sqm import SQM2
 from multioptpy_tpu_torch.geometry import (project_gradient_tr_rot,
                                            tr_rot_projector)
 from multioptpy_tpu_torch.io.fixtures import alkane_chain, diels_alder_reactant
-from multioptpy_tpu_torch.ops import eigh64
-from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_plain
+from multioptpy_tpu_torch.ops import eigh64, tridiag_cuda
+from multioptpy_tpu_torch.ops.jacobi_cuda import (b_min, jacobi_eigh_plain,
+                                                   max_dim)
 from multioptpy_tpu_torch.steppers.rfo import rs_rfo_step
 from multioptpy_tpu_torch.units import ANGSTROM2BOHR
 
@@ -116,3 +118,66 @@ def test_rs_rfo_step_on_the_k1_route_matches_lapack(hot_path):
     exact, _ = rs_rfo_step(g, h, trust, eigh_impl="xla")
     got, _ = rs_rfo_step(g, h, trust, eigh_impl="kernel")
     assert (got - exact).abs().max() <= 1e-10
+
+
+# (B, D) of every f64 eigh_fast call the benchmark's cells pose, and its
+# route: the RS-RFO step (D = 3N), Loewdin (band order), EEQ (N + 1) at B = 1
+# or the batch, and the exact Hessian's 6N displaced structures
+CELL_SHAPES = [
+    (1, 54, "cusolver"), (1, 72, "cusolver"), (1, 20, "k1"),     # da.opt1
+    (108, 72, "k1"), (108, 20, "k1"),
+    (1, 78, "cusolver"), (1, 104, "cusolver"), (1, 28, "k1"),    # octane.opt1
+    (156, 104, "k1"), (156, 28, "k1"),
+    (16, 78, "k1"), (16, 104, "k1"), (16, 28, "k1"),           # octane.conf16
+    (2496, 104, "k1"), (2496, 28, "k1"),
+    (16, 54, "k1"), (16, 72, "k1"), (16, 20, "k1"),              # da.orient16
+    (1728, 72, "k1"), (1728, 20, "k1"),
+    (1, 294, "cusolver"), (1, 392, "cusolver"), (1, 99, "cusolver"),  # c32h66
+    (588, 99, "k1"),
+]
+
+
+@pytest.mark.parametrize("b, d, route", CELL_SHAPES)
+def test_the_cells_shapes_route_as_before(b, d, route):
+    assert eigh64.eigh_route("cuda", torch.float64, d, b, False) == route
+
+
+def test_the_c32h66_start_goes_to_k3():
+    """The exact Hessian's 588 band and Loewdin matrices at D = 392, the
+    one shape of the cells that moved off cuSOLVER; grad-tracked, off the
+    card or in f32 it does not."""
+    assert eigh64.eigh_route("cuda", torch.float64, 392, 588, False) == "k3"
+    route = eigh64.eigh_route
+    assert route("cuda", torch.float64, 392, 588, True) == "cusolver"
+    assert route("cpu", torch.float64, 392, 588, False) == "cpu"
+    assert route("cuda", torch.float32, 392, 588, False) == "cusolver"
+
+
+def b_min3(d):
+    return b_min(d, torch.float64, tridiag_cuda.K3_MIN_BATCH)
+
+
+def test_k3_only_past_k1s_gate_from_b_min3():
+    """"k3" exactly where D is past K1's gate (D > 120 in f64) and B is at
+    least `b_min` by K3_MIN_BATCH (`b_min3`); never in f32, whose K1 gate
+    is 168 and which K3 does not take; K1's region routes as `b_min`
+    says."""
+    top = max_dim(torch.float64)
+    batches = (1, 2, 3, 4, 6, 8, 16, 100, 588, 2496)
+    for d in range(2, 840):
+        need = b_min3(d)
+        for b in batches:
+            route = eigh64.eigh_route("cuda", torch.float64, d, b, False)
+            want_k3 = d + d % 2 > top and need is not None and b >= need
+            assert (route == "k3") == want_k3, (d, b, route)
+            if d + d % 2 > top:
+                assert route in ("k3", "cusolver")
+            assert eigh64.eigh_route("cuda", torch.float32, d, b,
+                                     False) != "k3"
+    table = tridiag_cuda.K3_MIN_BATCH[torch.float64]
+    assert min(table) > top and max(table) <= tridiag_cuda.max_dim()
+    assert b_min3(min(table) - 1) is None
+    assert b_min3(max(table) + 1) is None
+    dims = sorted(table)
+    for lo, hi in zip(dims, dims[1:]):
+        assert b_min3((lo + hi) // 2) == max(table[lo], table[hi])
