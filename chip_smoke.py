@@ -266,7 +266,7 @@ Phases, each printing one JSON line:
      LJ batch (rtol 1e-10). (e) The tensor-parallel SQM2 gradient (f64,
      tp_energy_and_gradient; meshes of cuda:0 on the axis "tp"): the
      98-atom C32H66 (alkane_chain(32), band 392: torch.linalg.eigh through
-     jacobi_eigh_auto) on 1, 2 and 4 shards (rows 98; 49+49; 25+25+24+24),
+     K1's gate) on 1, 2 and 4 shards (rows 98; 49+49; 25+25+24+24),
      each held to the unsharded gradient on the card to 1e-12 Ha and 1e-12
      Ha/Bohr, and the card's to the port's CPU result to 1e-9 Ha and 1e-8
      Ha/Bohr; 5 rfo_fsb steps of it through `optimize` with
@@ -385,16 +385,16 @@ def once_ms(fn):
 def check_row(jc, gen, b, d, dtype, where, card, timed=True, sweeps=None):
     """One kernel_check row: the kernel against its plain version on a
     random (b, d, d) batch at `sweeps`, else at the sweeps of `where` (a
-    main-path shape: its `_eigh` count; the near-degenerate and boundary
+    main-path shape: its `eigh64.plan` count; the near-degenerate and boundary
     rows 12), timed with the plain version, torch.linalg.eigh and the bound
     when `timed`. Emits the row and raises when the kernel disagrees."""
     from multioptpy_tpu_torch.device import cuda_ms
-    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
-                                                   rfo_extra_sweeps)
+    from multioptpy_tpu_torch.ops.eigh64 import (jacobi_sweeps_for,
+                                                 rfo_extra_sweeps)
 
     # clustered spectra converge slowly: the near-degenerate batch and
     # the boundary rows (B = 12289 random matrices hold close pairs)
-    # get 12 sweeps; every main-path shape the main path's (`_eigh`:
+    # get 12 sweeps; every main-path shape the main path's (`plan`:
     # one more than its CPU count, an RS-RFO step more in f64)
     sw = sweeps or (12 if where in ("near-degenerate", "variant boundary")
                     else jacobi_sweeps_for(d) + (rfo_extra_sweeps(dtype)
@@ -470,8 +470,10 @@ def check_row(jc, gen, b, d, dtype, where, card, timed=True, sweeps=None):
 
 
 def phase_kernel_check(jc, card):
+    from multioptpy_tpu_torch.ops.cuda_build import build
+
     t0 = time.perf_counter()
-    lib_path, log = jc.build()
+    lib_path, log = build(jc.SOURCE)
     build_s = time.perf_counter() - t0
     emit({"phase": "build", "library": str(lib_path.relative_to(REPO)),
           "seconds": build_s,
@@ -604,9 +606,10 @@ def phase_k3_check(card):
     and Loewdin matrices, a step's 1 x 392 and 1 x 294 (which the route
     leaves on cuSOLVER), and a 16-member batch's 16 x 392."""
     from multioptpy_tpu_torch.ops import tridiag_cuda as tc
+    from multioptpy_tpu_torch.ops.cuda_build import build
 
     t0 = time.perf_counter()
-    lib_path, log = tc.jacobi_cuda.build(tc.SOURCE)
+    lib_path, log = build(tc.SOURCE)
     emit({"phase": "build", "library": str(lib_path.relative_to(REPO)),
           "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in log.splitlines()
@@ -627,6 +630,7 @@ def phase_c32h66_start(jc, card):
     from multioptpy_tpu_torch.drivers.optimize import OptimizeConfig, optimize
     from multioptpy_tpu_torch.io.fixtures import alkane_chain
     from multioptpy_tpu_torch.logging_utils import StageTimer, recording
+    from multioptpy_tpu_torch.ops import eigh64
     from multioptpy_tpu_torch.ops import tridiag_cuda as tc
     from multioptpy_tpu_torch.units import ANGSTROM2BOHR
 
@@ -636,9 +640,9 @@ def phase_c32h66_start(jc, card):
         c.shape), device="cuda")
     calc = SQM2(device="cuda")
     cfg = OptimizeConfig(method="rfo_fsb", init_hessian="exact", nsteps=2)
-    table, runs = tc.K3_MIN_BATCH, {}
+    table, runs = eigh64.K3_MIN_BATCH, {}
     for route in ("cusolver", "k3"):
-        tc.K3_MIN_BATCH = table if route == "k3" else {}
+        eigh64.K3_MIN_BATCH = table if route == "k3" else {}
         try:
             calc.energy_and_gradient(x[None], z)
             jc.reset_launches()
@@ -650,7 +654,7 @@ def phase_c32h66_start(jc, card):
             torch.cuda.synchronize()
             runs[route] = (time.perf_counter() - t0, res, rec.eigh_calls)
         finally:
-            tc.K3_MIN_BATCH = table
+            eigh64.K3_MIN_BATCH = table
     launches = dict(jc.jacobi_eigh_cuda.variant_launches)
     k3_launches = dict(tc.tridiag_eigh_cuda.stage_launches)
     (lib_s, lib, lib_calls), (k3_s, k3, k3_calls) = runs["cusolver"], \
@@ -768,7 +772,7 @@ def phase_slice_b(jc, card):
     t0 = time.perf_counter()
     # the CPU run takes the kernel's algorithm at the card's sweep counts
     # (its plain version): the reference's CPU Jacobi is one sweep short of
-    # convergence on this RFO Hessian (steppers/rfo._eigh)
+    # convergence on this RFO Hessian (ops/eigh64.plan)
     cfg["eigh_impl"] = "kernel"
     cpu = optimize(SQM2(eigh_impl="kernel", device="cpu"), coords, z,
                    config=OptimizeConfig(nsteps=3, **cfg), device="cpu")
@@ -976,8 +980,8 @@ def phase_methods(jc, card, saddle_start, n_steps=METHOD_STEPS):
                                                saddle_sweep_residuals)
     from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
     from multioptpy_tpu_torch.reaction_paths import CPU_RERUN_BAND
-    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
-                                                   rfo_extra_sweeps)
+    from multioptpy_tpu_torch.ops.eigh64 import (jacobi_sweeps_for,
+                                                 rfo_extra_sweeps)
 
     torch.set_num_threads(8)
     reactant, z = diels_alder_reactant()
@@ -2354,7 +2358,7 @@ def phase_mesh(jc, card, full_res, full_detail, rows):
     jc.reset_launches()
     run = mp.tp_gradient_runs("cuda", between=take)
     card_g = run.pop("gradient")
-    run["band_route"] = ("torch.linalg.eigh (jacobi_eigh_auto: D = "
+    run["band_route"] = ("torch.linalg.eigh (eigh64.plan: D = "
                          f"{run['band']} > K1's f64 limit "
                          f"{jc.max_dim(torch.float64)})")
     extra = mp.tp_cpu_check(run["energy"], card_g)

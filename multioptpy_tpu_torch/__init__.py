@@ -4,9 +4,11 @@ Each module `multioptpy_tpu_torch/<sub>/<mod>.py` is the counterpart of
 `multioptpy_tpu/<sub>/<mod>.py` with the same public names, torch tensors in
 place of jax arrays, and an explicit leading batch axis wherever the JAX
 drivers `vmap` (calculator energies, gradients and Hessians, the RS-RFO step,
-Hessian updates, the optimizer step). The one hand-written kernel, the
-batched Jacobi eigensolver, lives in `csrc/jacobi_eigh.cu` and is built with
-`nvcc` at first use (`ops/jacobi_cuda.py`).
+Hessian updates, the optimizer step). The hand-written kernels, the
+batched Jacobi eigensolver (`csrc/jacobi_eigh.cu`, `ops/jacobi_cuda.py`) and
+the batched tridiagonal eigensolver (`csrc/tridiag_eigh.cu`,
+`ops/tridiag_cuda.py`), are built with `nvcc` at first use
+(`ops/cuda_build.py`); `ops/eigh64.py` chooses which runs each solve.
 
 Entry points take `device=None`, which means the CUDA card; they raise when
 no card is present unless the caller asks for `device="cpu"`.

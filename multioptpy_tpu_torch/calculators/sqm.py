@@ -25,9 +25,8 @@ from multioptpy_tpu_torch.device import bmv
 from multioptpy_tpu_torch.hessian.dispersion import (
     D2_C6_JNM6, D2_VDW_ANG, D4_A1, D4_A2, D4_EN, D4_GA, D4_GC, D4_R4R2, D4_S6,
     D4_S8, d3_coordination_numbers, d4_energy)
-from multioptpy_tpu_torch.logging_utils import span, spanned, to_card
-from multioptpy_tpu_torch.ops.eigh64 import (eigh_fast, eigh_solve,
-                                             inv_sqrt_psd, seeded_eigh)
+from multioptpy_tpu_torch.logging_utils import span, to_card
+from multioptpy_tpu_torch.ops.eigh64 import eigh, eigh_solve, inv_sqrt_psd
 from multioptpy_tpu_torch.parallel.mesh import check_mesh, mesh_device
 from multioptpy_tpu_torch.periodic import COVALENT_RADII_1, UFF_VDW_R
 from multioptpy_tpu_torch.units import HARTREE2EV
@@ -476,23 +475,6 @@ def _overlap_full(coords, prm, nob, rows=ALL_ROWS):
     return torch.cat(blocks, dim=-2)
 
 
-@spanned("eigh")
-def _sqm_eigh(a, impl):
-    """Band eigensolver dispatch: "auto" ("pallas" on a CUDA tensor, else
-    torch.linalg.eigh) | "pallas" or "kernel" (steppers.rfo._eigh: the
-    Jacobi kernel on CUDA; on the CPU the round-robin Jacobi, or the
-    kernel's plain version) | "seeded" (ops/eigh64.seeded_eigh) | a callable
-    (steppers.rfo._eigh) | anything else torch.linalg.eigh."""
-    if impl == "auto":
-        impl = "pallas" if a.is_cuda else "xla"
-    if impl == "seeded":
-        return seeded_eigh(a)
-    if callable(impl) or impl in ("pallas", "kernel"):
-        from multioptpy_tpu_torch.steppers.rfo import _eigh
-        return _eigh(a, impl)
-    return eigh_fast(a)
-
-
 def _free_energy(eps, occ, kt):
     """Mermin F = sum occ eps - kT S_el, with 0 log 0 = 0."""
     f_half = occ.mul(0.5).clamp(0.0, 1.0)
@@ -509,7 +491,7 @@ class _BandFreeEnergy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, n_elec, kt, eigh_impl):
-        w, v = _sqm_eigh(a, eigh_impl)
+        w, v = eigh(a, eigh_impl, "band")
         occ, _ = _fermi_occupations(w, n_elec, kt)
         if ctx.needs_input_grad[0]:
             ctx.save_for_backward((v * occ[..., None, :]) @ v.mT)
@@ -692,11 +674,8 @@ class SQM(Calculator):
         self.k_sp_heavy = float(kw.pop("k_sp_heavy", self.k_sp))
         self.k_en = float(kw.pop("k_en", 0.0))
         self.srb_k_heavy = kw.pop("srb_k_heavy", None)
-        # band eigensolver: "auto" (the Jacobi kernel on the card,
-        # torch.linalg.eigh on the CPU) | "xla" (torch.linalg.eigh) |
-        # "pallas" or "kernel" (the Jacobi kernel; see steppers.rfo._eigh)
-        # | "seeded" | a callable (h, sweeps) -> (w, v), as
-        # steppers.rfo._eigh takes
+        # the band's eigensolver knob, read as ops/eigh64.plan reads it
+        # for the caller "band"
         impl = kw.pop("eigh_impl", "auto")
         self.eigh_impl = impl if callable(impl) else str(impl)
         self.dispersion = str(kw.pop("dispersion", "d2"))

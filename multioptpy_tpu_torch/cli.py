@@ -269,11 +269,8 @@ def _base_parser(description):
                    help="cuda (default) or cpu")
     p.add_argument("--eigh_impl", default=None,
                    choices=("xla", "pallas", "kernel"),
-                   help="eigensolver of the RS-RFO step and of the SQM band: "
-                        "pallas = the Jacobi kernel on the card, kernel = "
-                        "its algorithm on any device (default: "
-                        "torch.linalg.eigh for the step, the kernel for the "
-                        "band on the card)")
+                   help="eigensolver of the RS-RFO step and of the SQM "
+                        "band (ops/eigh64.plan)")
     return p
 
 

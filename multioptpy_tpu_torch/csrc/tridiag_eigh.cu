@@ -41,7 +41,7 @@
 // rotations a matrix (a reciprocal square root each), so a matrix takes the
 // chain's time whatever the batch, and small batches leave the card idle: the
 // route sends a batch here only from the measured crossover
-// (tridiag_cuda.K3_MIN_BATCH). The apply is bound by shared-memory traffic,
+// (eigh64.K3_MIN_BATCH). The apply is bound by shared-memory traffic,
 // about D^3 rotated entries a matrix. The design answers each: sytrd's fused
 // pass moves two thirds of the unfused dsytd2's bytes; every block of a
 // 588-matrix sytrd is resident at once (five an SM); ormtr and apply keep

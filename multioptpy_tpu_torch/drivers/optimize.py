@@ -91,7 +91,7 @@ class OptimizeConfig:
     diis_variant: Optional[str] = None  # gdiis | gediis | kdiis | ediis |
                                      # adiis | c2diis (overrides use_gdiis)
     follow_mode_index: int = 0       # initial mode of mf_rsirfo_* methods
-    # "xla" | "jacobi" | "pallas" | "kernel" | a callable (steppers.rfo._eigh)
+    # the step's eigensolver knob (ops/eigh64.plan)
     eigh_impl: str = "xla"
     switch_method: Optional[str] = None  # first-order engine blended in at
                                      # high RMS force (CLI: -opt m1 m2)

@@ -4,40 +4,15 @@ Counterpart of `multioptpy_tpu/ops/jacobi.py`. Each round applies D/2
 disjoint Givens rotations composed into one block rotation G, so a round is
 A <- G A G^T, V <- V G^T, re-symmetrized every round. A sweep is D-1 rounds.
 This is what `eigh_impl="pallas"` runs on the CPU (the reference's CPU branch
-of the same option), and the f64 polish of `ops/eigh64.seeded_eigh` on every
-device. The hand-written kernel is `ops/jacobi_cuda.py`.
+of the same option; `ops/eigh64.plan` routes it), and the f64 polish of
+`ops/eigh64.seeded_eigh` on every device. The hand-written kernel is
+`ops/jacobi_cuda.py`.
 """
-
-import math
 
 import numpy as np
 import torch
 
 from multioptpy_tpu_torch.logging_utils import count_eigh
-
-# sweeps the Jacobi routes add to `jacobi_sweeps_for(D)` for an f64 RS-RFO
-# Hessian: TR/rot-projected Hessians with the projected-out block at 1e3
-# and clustered soft modes (model Hessians, their quasi-Newton updates)
-# converge slowly. Over the 257 RFO Hessians of a reduced flagship AutoTS
-# run (Diels-Alder, D = 54) the largest off-diagonal left, relative to
-# max|a|, is 8.3e-6 to 3.4e-5 after 8 sweeps (the count the band keeps),
-# 2.9e-11 to 4.1e-10 after 12 and below 4e-13 after 13 over three runs,
-# one on an H100 and two on CPUs (`python3 -m multioptpy_tpu_torch.flagship`);
-# this takes 14 (ROADMAP Queue 3, F3). f32 keeps one extra sweep: its
-# rounding floor comes first.
-RFO_F64_EXTRA_SWEEPS = 7
-
-
-def jacobi_sweeps_for(d):
-    """The Jacobi sweep count `steppers.rfo._eigh` uses at dimension d; it
-    grows logarithmically: 5 + ceil(log2(max(d, 16) / 16)). The kernel
-    runs one more."""
-    return 5 + max(0, math.ceil(math.log2(max(d, 16) / 16.0)))
-
-
-def rfo_extra_sweeps(dtype):
-    """The kernel routes' extra sweeps for an RS-RFO Hessian of `dtype`."""
-    return RFO_F64_EXTRA_SWEEPS if dtype == torch.float64 else 1
 
 
 def _round_robin_schedule(n):

@@ -1,53 +1,38 @@
-"""Hopper kernel for the batched small-matrix Jacobi eigensolver.
+"""Hopper kernel for the batched small-matrix Jacobi eigensolver (K1).
 
 Counterpart of `multioptpy_tpu/ops/jacobi_pallas.py`. The kernel itself is
 `csrc/jacobi_eigh.cu`, in two variants behind one wrapper: a warp per
 matrix for D <= 32 at batches that fill the card, a block per matrix
 otherwise, both with one fused pass over the round's 2x2 blocks (see the
-note at its top). It is compiled with
-`nvcc` for sm_90a into a shared library with a C interface at first use,
-keyed by a hash of the source, into `_build/` beside the package, and
+note at its top). `ops/cuda_build.py` compiles it at first use and it is
 loaded with ctypes. Nothing compiles at import time.
 
 `jacobi_eigh_cuda` launches the kernel on a CUDA tensor and runs the plain
 PyTorch version `jacobi_eigh_plain` (the same algorithm: circle-method
 pairs, all rotations of a round in parallel, re-symmetrized once per sweep)
 only on a CPU tensor; `launch` is its raw launch by a given plan (the
-scan of the variants' crossover forces one). `b_min` reads
-`EIGH_MIN_BATCH`, the measured batch from which `ops/eigh64.eigh_fast`
-sends a call here rather than to torch.linalg.eigh. `launch_plan`,
-`pair_indices`, `thread_blocks` and
-`symmetrize_pairs` repeat the kernel's index arithmetic and launch shape in
-Python, so that the CPU tests can check them. `jacobi_eigh_auto` keeps the
-reference's shape gate, with the kernel's shared-memory limit as its
-threshold.
+scan of the variants' crossover forces one). `max_dim` is the kernel's
+shared-memory gate. Which calls come here, at how many sweeps, is
+`ops/eigh64.plan`'s choice. `launch_plan`, `pair_indices`, `thread_blocks`
+and `symmetrize_pairs` repeat the kernel's index arithmetic and launch
+shape in Python, so that the CPU tests can check them.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from functools import lru_cache
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
-from multioptpy_tpu_torch.logging_utils import count_eigh, spanned
+from multioptpy_tpu_torch.logging_utils import count_eigh
+from multioptpy_tpu_torch.ops.cuda_build import (CSRC, SMEM_LIMIT, build,
+                                                 device_index)
 from multioptpy_tpu_torch.ops.jacobi import pad_to_even, sort_and_trim
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "jacobi_eigh.cu"
-BUILD_DIR = _PKG_DIR / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = CSRC / "jacobi_eigh.cu"
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 VARIANTS = ("warp", "block")
 
-# dynamic shared memory a Hopper block may opt into (bytes)
-SMEM_LIMIT = 232448
 # the kernel's constants (csrc/jacobi_eigh.cu)
 WARP_MAX_D = 32
 WARP_LD = 32
@@ -59,19 +44,6 @@ H100_SMS = 132
 # crossover elsewhere: at D = 32 from 8 matrices per SM, at D = 24 beyond
 # the largest batch scanned (PERF.md, section 6)
 WARP_MIN_BATCH_PER_SM = 12
-# the smallest batch from which `ops/eigh64.eigh_fast` sends a (B, D, D)
-# call to the kernel, by dtype and even D: from there on the wrapper
-# (padding and sort included), at `eigh64.k1_sweeps(D)`, beat
-# torch.linalg.eigh at every batch scanned (B = 1, 2, 3, 4, 6, 8, 16;
-# `python3 -m multioptpy_tpu_torch.scan_jacobi --crossover` on an H100
-# 80GB HBM3 at 700 W, PERF.md section 6). At D <= 32 the kernel won from
-# one matrix on (at D = 28 by 5-12 %); at B = 1 cuSOLVER took 0.74 ms at
-# D = 54 against the kernel's 0.76, 1.41 against 3.36 at D = 104.
-EIGH_MIN_BATCH = {
-    torch.float64: {20: 1, 28: 1, 54: 2, 56: 2, 72: 2, 78: 2, 80: 2, 104: 3,
-                    120: 6},
-    torch.float32: {24: 1, 32: 1},
-}
 
 
 class LaunchPlan(NamedTuple):
@@ -108,21 +80,6 @@ def max_dim(dtype):
     while smem_bytes(d + 2, itemsize) <= SMEM_LIMIT:
         d += 2
     return d
-
-
-def b_min(d, dtype, table=None):
-    """The smallest batch a kernel takes at D d by `table` (dtype -> D ->
-    batch; EIGH_MIN_BATCH if None, K3's `tridiag_cuda.K3_MIN_BATCH` past
-    K1's gate): the scanned entry, between two scanned D the larger of the
-    two; None (no batch goes to the kernel) outside the scanned D."""
-    table = (EIGH_MIN_BATCH if table is None else table).get(dtype, {})
-    if d in table:
-        return table[d]
-    below = [k for k in table if k < d]
-    above = [k for k in table if k > d]
-    if not below or not above:
-        return None
-    return max(table[max(below)], table[min(above)])
 
 
 def launch_plan(b, d, dtype, sm_count=H100_SMS):
@@ -217,34 +174,9 @@ def symmetrize_pairs(d):
     return torch.stack([i, (i + delta) % d], dim=-1)
 
 
-def build(source=SOURCE):
-    """Compile the kernel library of `source` (a file of `csrc/`) if it
-    has not been built yet. Returns (path, compiler log); the log is empty
-    when it was cached."""
-    key = hashlib.sha256(source.read_bytes()
-                         + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{source.stem}_{key}.so"
-    if lib_path.exists():
-        return lib_path, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        out = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, str(source)],
-                             capture_output=True, text=True)
-        if out.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{out.stderr}")
-        os.replace(tmp, lib_path)   # atomic: concurrent builds cannot clash
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path, out.stderr
-
-
 @lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(build()[0]))
+    lib = ctypes.CDLL(str(build(SOURCE)[0]))
     for variant in VARIANTS:
         for tag in _DTYPE_TAG.values():
             fn = getattr(lib, f"jacobi_eigh_{variant}_{tag}")
@@ -257,15 +189,15 @@ def _library():
 
 
 @lru_cache(maxsize=None)
-def _prepare(device_index, dtype):
+def _prepare(index, dtype):
     """Once per device and dtype: both variants may take SMEM_LIMIT bytes
     of dynamic shared memory. Returns the device's SM count."""
-    with torch.cuda.device(device_index):
+    with torch.cuda.device(index):
         rc = _library().jacobi_eigh_allow_smem(int(dtype == torch.float64))
     if rc != 0:
         raise RuntimeError(f"jacobi_eigh: cudaFuncSetAttribute failed: "
                            f"cudaError {rc}")
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def jacobi_eigh_plain(a, sweeps=7):
@@ -301,7 +233,6 @@ def jacobi_eigh_plain(a, sweeps=7):
                          batch_shape)
 
 
-@spanned("eigh")
 def jacobi_eigh_cuda(a, sweeps=7):
     """Eigendecomposition of symmetric a (..., D, D), ascending: returns
     (w, v) with a = v @ diag(w) @ v.T. f32 or f64, D up to `max_dim`.
@@ -324,14 +255,10 @@ def jacobi_eigh_cuda(a, sweeps=7):
     if d > max_dim(a.dtype):
         raise ValueError(f"jacobi_eigh_cuda: D={d} exceeds the shared-memory "
                          f"limit {max_dim(a.dtype)} for {a.dtype}")
-    plan = launch_plan(b, d, a.dtype, _prepare(_index(a3.device), a.dtype))
+    sm_count = _prepare(device_index(a3.device), a.dtype)
+    plan = launch_plan(b, d, a.dtype, sm_count)
     w, v = launch(a3, sweeps, plan)
     return sort_and_trim(w, v, d0, batch_shape)
-
-
-def _index(device):
-    return device.index if device.index is not None else \
-        torch.cuda.current_device()
 
 
 def launch(a3, sweeps, plan):
@@ -347,7 +274,7 @@ def launch(a3, sweeps, plan):
     w = torch.empty((b, d), dtype=a3.dtype, device=a3.device)
     v = torch.empty((b, d, d), dtype=a3.dtype, device=a3.device)
     if b:
-        dev = _index(a3.device)
+        dev = device_index(a3.device)
         _prepare(dev, a3.dtype)
         fn = getattr(_library(),
                      f"jacobi_eigh_{plan.variant}_{_DTYPE_TAG[a3.dtype]}")
@@ -376,15 +303,3 @@ def reset_launches():
 
 
 reset_launches()
-
-
-@spanned("eigh")
-def jacobi_eigh_auto(h, sweeps=7):
-    """`jacobi_eigh_cuda` below the kernel's shared-memory limit,
-    `eigh64.eigh_fast` above it (the reference's shape gate, at the Hopper
-    kernel's own limit rather than the TPU crossover)."""
-    d = h.shape[-1] + h.shape[-1] % 2
-    if d > max_dim(h.dtype):
-        from multioptpy_tpu_torch.ops.eigh64 import eigh_fast
-        return eigh_fast(h)
-    return jacobi_eigh_cuda(h, sweeps)

@@ -10,16 +10,14 @@ torch.linalg.eigh returns them. The chain stops when a matrix's rotation
 record is full and resumes after the record has been applied, so a call
 runs one or more rounds of (chain, apply) and reads one status a round.
 
-The library is compiled with nvcc for sm_90a at first use, keyed by a hash
-of the source, into `_build/` beside the package (`jacobi_cuda.build`),
-and loaded with ctypes. Nothing compiles at import time.
+`ops/cuda_build.py` compiles the library at first use and it is loaded
+with ctypes. Nothing compiles at import time.
 
 `tridiag_eigh_cuda` launches the kernels on a CUDA tensor and runs the
 plain PyTorch version `tridiag_eigh_plain` (the same stages, the same
 chain with the same record and rounds) only on a CPU tensor. `launch`
-counts the kernels it launches, by stage. `K3_MIN_BATCH` holds the
-measured batch from which `ops/eigh64.eigh_fast` sends a call past K1's
-gate here rather than to torch.linalg.eigh (read by `jacobi_cuda.b_min`).
+counts the kernels it launches, by stage. Which calls come here is
+`ops/eigh64.plan`'s choice.
 """
 
 import ctypes
@@ -29,13 +27,13 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from multioptpy_tpu_torch.logging_utils import count_eigh, spanned
-from multioptpy_tpu_torch.ops import jacobi_cuda
+from multioptpy_tpu_torch.logging_utils import count_eigh
+from multioptpy_tpu_torch.ops.cuda_build import (CSRC, SMEM_LIMIT, build,
+                                                 device_index)
 
-SOURCE = jacobi_cuda.SOURCE.parent / "tridiag_eigh.cu"
+SOURCE = CSRC / "tridiag_eigh.cu"
 
 # the kernels' constants (csrc/tridiag_eigh.cu)
-SMEM_LIMIT = jacobi_cuda.SMEM_LIMIT
 CHUNK = 32          # sytrd: rows and columns of a tile of the trailing matrix
 ORMTR_COLS = 32     # ormtr: columns of Q one block forms
 ORMTR_THREADS = 256
@@ -52,18 +50,6 @@ RUNNING, FINISHED, DONE_BEFORE, FAILED = 0, 1, 2, 3
 EPS = 2.0 ** -53
 SAFMIN = 2.2250738585072014e-308
 MAXIT = 30
-
-# the smallest batch from which `ops/eigh64.eigh_fast` sends a (B, D, D)
-# f64 call with D past K1's gate here, by D: from there on the wrapper beat
-# torch.linalg.eigh at every batch scanned (B = 1, 2, 3, 4, 6, 8, 16, 588;
-# `python3 -m multioptpy_tpu_torch.scan_jacobi --crossover` on an H100
-# 80GB HBM3 at 700 W, PERF.md section 6). K3 takes the QL chain's time
-# whatever the batch (4.4, 11.6, 24.2 and 42.9 ms at B = 1), cuSOLVER
-# about its B = 1 time a matrix (1.7, 1.9, 3.0 and 4.0 ms); at 588 K3
-# took 7.9, 26.1, 86.4 and 174.3 ms against 921, 1,019, 1,651 and 2,231.
-K3_MIN_BATCH = {
-    torch.float64: {122: 4, 200: 8, 294: 16, 392: 16},
-}
 
 
 def smem_bytes(n):
@@ -418,7 +404,7 @@ def tridiag_eigh_plain(a, capacity=None):
 
 @lru_cache(maxsize=None)
 def _library():
-    lib = ctypes.CDLL(str(jacobi_cuda.build(SOURCE)[0]))
+    lib = ctypes.CDLL(str(build(SOURCE)[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.k3_sytrd_f64.argtypes = [ptr] * 5 + [i32] * 2 + [ptr]
     lib.k3_ormtr_f64.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
@@ -432,10 +418,10 @@ def _library():
 
 
 @lru_cache(maxsize=None)
-def _prepare(device_index):
+def _prepare(index):
     """Once per device: ormtr and apply may take SMEM_LIMIT bytes of
     dynamic shared memory."""
-    with torch.cuda.device(device_index):
+    with torch.cuda.device(index):
         rc = _library().k3_allow_smem()
     if rc != 0:
         raise RuntimeError(f"tridiag_eigh: cudaFuncSetAttribute failed: "
@@ -467,7 +453,7 @@ def launch(a3):
     launch once per MAX_GRID_Y matrices). Returns (w, v) ascending."""
     bsz, n, _ = a3.shape
     dev = a3.device
-    _prepare(jacobi_cuda._index(dev))
+    _prepare(device_index(dev))
     lib = _library()
     f64 = dict(dtype=torch.float64, device=dev)
     work = a3.clone()
@@ -513,7 +499,6 @@ def launch(a3):
     return w, v
 
 
-@spanned("eigh")
 def tridiag_eigh_cuda(a):
     """Eigendecomposition of symmetric a (..., n, n), ascending: returns
     (w, v) with a = v @ diag(w) @ v.T. f64, n up to `max_dim`.

@@ -43,8 +43,7 @@ from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
 from multioptpy_tpu_torch.logging_utils import (StageTimer, device_ops,
                                                 recording)
 from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_cuda
-from multioptpy_tpu_torch.steppers.rfo import (_eigh, jacobi_sweeps_for,
-                                               rfo_extra_sweeps)
+from multioptpy_tpu_torch.ops.eigh64 import eigh, jacobi_sweeps_for
 
 
 def host_ms(fn, reps):
@@ -105,7 +104,7 @@ def breakdown(name, calc, x, z, cfg, reps):
         "exact_hessian_ms": host_ms(lambda: calc.hessian(state.coords, z), 1),
         "step_ms": host_ms(lambda: step(state), reps),
         "kernel_rfo_shape_ms": host_ms(
-            lambda: _eigh(h_eff, "pallas", rfo_extra_sweeps(h_eff.dtype)),
+            lambda: eigh(h_eff, "pallas", "step"),
             reps),
     }
     timer = StageTimer()

@@ -26,12 +26,12 @@ route's sweep count (`eigh64.k1_sweeps`) and torch.linalg.eigh (the median
 of three CUDA-event means each), one JSON line per (dtype, D, B), then one
 line per (dtype, D) with `b_min`: the smallest scanned batch from which K1
 is faster at every larger scanned batch (null if at none), beside the
-batch the route takes there (`jacobi_cuda.b_min`: the entry of
+batch the route takes there (`eigh64.b_min`: the entry of
 EIGH_MIN_BATCH, or between two entries the larger). Then the same past
 K1's gate for K3 (`tridiag_cuda.tridiag_eigh_cuda`): f64 at D = 122, 200,
 294 and 392 and B = 1, 2, 3, 4, 6, 8, 16 and 588, one line per (D, B) and
 one per D with `b_min3` beside the batch the route takes there
-(`jacobi_cuda.b_min` by `tridiag_cuda.K3_MIN_BATCH`). A
+(`eigh64.b_min` by `eigh64.K3_MIN_BATCH`). A
 call that takes over 0.1 s is timed once after a warm call, three times.
 """
 
@@ -45,7 +45,7 @@ import torch
 from multioptpy_tpu_torch.device import cuda_ms, resolve_device
 from multioptpy_tpu_torch.ops import jacobi_cuda as jc
 from multioptpy_tpu_torch.ops import tridiag_cuda as tc
-from multioptpy_tpu_torch.ops.eigh64 import k1_sweeps
+from multioptpy_tpu_torch.ops.eigh64 import K3_MIN_BATCH, b_min, k1_sweeps
 
 BATCHES = (256, 528, 1056, 1584, 2112, 4224, 12288)
 SWEEPS = 7
@@ -107,7 +107,7 @@ def scan_crossover(dev, card, gen):
             print(json.dumps({
                 "d": d, "dtype": _dtype_name(dtype), "sweeps": sweeps,
                 "b_min": _first_winning(CROSSOVER_BATCHES, k1_wins),
-                "table": jc.b_min(d, dtype), "card": card}),
+                "table": b_min(d, dtype), "card": card}),
                 flush=True)
 
 
@@ -137,8 +137,7 @@ def scan_k3(dev, card, gen):
                   flush=True)
         print(json.dumps({"d": d, "dtype": "float64",
                           "b_min3": _first_winning(K3_BATCHES, k3_wins),
-                          "table": jc.b_min(d, torch.float64,
-                                            tc.K3_MIN_BATCH),
+                          "table": b_min(d, torch.float64, K3_MIN_BATCH),
                           "card": card}), flush=True)
 
 

@@ -16,9 +16,7 @@ import math
 import torch
 
 from multioptpy_tpu_torch.device import bmv
-from multioptpy_tpu_torch.logging_utils import spanned
-from multioptpy_tpu_torch.ops.eigh64 import eigh_fast
-from multioptpy_tpu_torch.ops.jacobi import jacobi_sweeps_for, rfo_extra_sweeps
+from multioptpy_tpu_torch.ops.eigh64 import eigh, eigh_fast
 
 _POLE_EPS = 1e-10          # mode participates in the image flip
 SMALL_EIGVAL_THRESH = 1e-6  # mode excluded from the step
@@ -94,44 +92,6 @@ def _rfo_step_grid(d_im, g_im, valid, trust_radius, alpha0=1.0,
     return step, lam
 
 
-@spanned("eigh")
-def _eigh(h, impl, extra_sweeps=1):
-    """Symmetric eigendecomposition dispatch for batched h (B, D, D), with
-    sweeps = `jacobi_sweeps_for(D)`:
-
-    "pallas" -- the Hopper Jacobi kernel (ops/jacobi_cuda.py) on a CUDA
-               tensor, in f32 and f64, with sweeps + `extra_sweeps` sweeps
-               (one extra: the reference's TPU branch; the RS-RFO step
-               asks for `rfo_extra_sweeps`); on a CPU tensor the
-               round-robin matmul Jacobi (ops/jacobi.py) with `sweeps` (the
-               reference's CPU branch).
-    "kernel" -- the kernel's algorithm with sweeps + `extra_sweeps` on
-               every device: the kernel on CUDA, its plain version on the
-               CPU. A CPU run that must reproduce a card run uses it: at
-               the reference's CPU sweep count the Jacobi is not converged
-               on shifted, TR/rot-projected Hessians (Diels-Alder RFO step,
-               D = 54: off-diagonals above 1e-5 after 7 sweeps; pinned by
-               tests/test_torch_rfo.py).
-    "jacobi" -- the round-robin matmul Jacobi.
-    a callable -- called as impl(h, sweeps + `extra_sweeps`), the kernel
-               routes' arguments (`python3 -m multioptpy_tpu_torch.flagship`
-               passes one that keeps the matrices).
-    anything else -- `eigh_fast` (ops/eigh64.py: K1 at batches where the
-               card's crossover says it wins, else torch.linalg.eigh)."""
-    sweeps = jacobi_sweeps_for(h.shape[-1])
-    if callable(impl):
-        return impl(h, sweeps + extra_sweeps)
-    if impl == "kernel" or (impl == "pallas" and h.is_cuda):
-        from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_auto
-        return jacobi_eigh_auto(h, sweeps=sweeps + extra_sweeps)
-    if impl == "pallas":
-        impl = "jacobi"
-    if impl == "jacobi":
-        from multioptpy_tpu_torch.ops.jacobi import jacobi_eigh
-        return jacobi_eigh(h, sweeps=sweeps)
-    return eigh_fast(h)
-
-
 def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
                 alpha0=1.0, alpha_max=1000.0, n_alpha_iter=40,
                 eigh_impl="xla"):
@@ -144,6 +104,8 @@ def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
     trust_radius : (B,) Bohr.
     saddle_order : seek an n-th order saddle by sign-flipping the n lowest
         non-singular modes (image function).
+    eigh_impl : the eigensolver knob, read as `ops/eigh64.plan` reads it
+        for the caller "step".
 
     Returns
     -------
@@ -158,8 +120,7 @@ def rs_rfo_step(gradient, hessian, trust_radius, saddle_order=0,
     # Non-finite members are replaced before the solve, which would raise
     # on them (LAPACK) where the reference's eigh returns NaN.
     bad = ~torch.isfinite(sym).all(-1).all(-1)
-    d, v = _eigh(torch.where(bad[:, None, None], eye, sym), eigh_impl,
-                 rfo_extra_sweeps(sym.dtype))
+    d, v = eigh(torch.where(bad[:, None, None], eye, sym), eigh_impl, "step")
     bad = bad | ~(torch.isfinite(d).all(-1) & torch.isfinite(v).all((-2, -1)))
     d = torch.where(bad[:, None], 1.0, d)
     v = torch.where(bad[:, None, None], eye, v)
@@ -234,15 +195,13 @@ def rs_prfo_step(gradient, hessian, trust_radius, saddle_order=1,
     step exceeds its trust radius takes the alpha bisection's step
     (`n_alpha_iter` halvings of log10 alpha in [-6, log10 alpha_max]); the
     bisection runs for every row and a select keeps it where needed.
-    `eigh_impl` as in `_eigh`, with the RS-RFO sweep rule
-    (`rfo_extra_sweeps`)."""
+    `eigh_impl` as `rs_rfo_step` reads it."""
     b, dim = gradient.shape
     dtype = hessian.dtype
     eye = torch.eye(dim, dtype=dtype, device=hessian.device)
     sym = 0.5 * (hessian + hessian.mT)
     bad = ~torch.isfinite(sym).all(-1).all(-1)
-    d, v = _eigh(torch.where(bad[:, None, None], eye, sym), eigh_impl,
-                 rfo_extra_sweeps(dtype))
+    d, v = eigh(torch.where(bad[:, None, None], eye, sym), eigh_impl, "step")
     bad = bad | ~(torch.isfinite(d).all(-1) & torch.isfinite(v).all((-2, -1)))
     d = torch.where(bad[:, None], 1.0, d)
     v = torch.where(bad[:, None, None], eye, v)

@@ -173,7 +173,7 @@ def band_check(coords_b, z, device):
     largest off-diagonal K1's sweeps leave on the bands (relative to
     max|a|)."""
     from multioptpy_tpu_torch.flagship import offdiagonal_by_sweeps
-    from multioptpy_tpu_torch.steppers.rfo import jacobi_sweeps_for
+    from multioptpy_tpu_torch.ops.eigh64 import jacobi_sweeps_for
 
     kept = []
 
@@ -200,8 +200,8 @@ def rfo_sweep_check(coords_b, z, device, n_steps=5):
     torch.linalg.eigh: {sweeps: largest off-diagonal / max|a|} the kernel's
     algorithm leaves, at the step's sweep count and around it."""
     from multioptpy_tpu_torch.flagship import offdiagonal_by_sweeps
-    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
-                                                   rfo_extra_sweeps)
+    from multioptpy_tpu_torch.ops.eigh64 import (jacobi_sweeps_for,
+                                                 rfo_extra_sweeps)
 
     kept = []
 

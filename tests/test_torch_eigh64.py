@@ -133,9 +133,9 @@ def test_eigh_route_sends_batches_from_b_min_to_k1():
     """On the card, a batch of at least b_min(D) f32 or f64 matrices with
     D up to max_dim goes to K1, a smaller one to cuSOLVER; an odd D is
     looked up at its even padding."""
-    from multioptpy_tpu_torch.ops.jacobi_cuda import EIGH_MIN_BATCH, max_dim
+    from multioptpy_tpu_torch.ops.jacobi_cuda import max_dim
 
-    routed = [(dtype, d, need) for dtype, table in EIGH_MIN_BATCH.items()
+    routed = [(dtype, d, need) for dtype, table in port.EIGH_MIN_BATCH.items()
               for d, need in table.items()]
     assert routed
     for dtype, d, need in routed:
@@ -178,16 +178,14 @@ def test_eigh_route_keeps_large_dims_grad_and_cpu_off_k1(dtype):
 def test_b_min_takes_the_larger_neighbour_between_scanned_dims():
     """Between two scanned D the larger b_min of the two; outside the
     scanned D never K1."""
-    from multioptpy_tpu_torch.ops import jacobi_cuda as jc
-
-    for dtype, table in jc.EIGH_MIN_BATCH.items():
+    for dtype, table in port.EIGH_MIN_BATCH.items():
         dims = sorted(table)
         for lo, hi in zip(dims, dims[1:]):
             for d in range(lo + 2, hi, 2):
-                assert jc.b_min(d, dtype) == max(table[lo], table[hi]), (
+                assert port.b_min(d, dtype) == max(table[lo], table[hi]), (
                     dtype, d)
-        assert jc.b_min(dims[0] - 2, dtype) is None
-        assert jc.b_min(dims[-1] + 2, dtype) is None
+        assert port.b_min(dims[0] - 2, dtype) is None
+        assert port.b_min(dims[-1] + 2, dtype) is None
 
 
 def test_cpu_eigh_fast_is_lapack_counted_as_cpu():
@@ -207,10 +205,8 @@ def test_cpu_eigh_fast_is_lapack_counted_as_cpu():
 
 def test_k1_sweeps_are_the_rs_rfo_count():
     """One sweep count for every caller: the f64 RS-RFO step's."""
-    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
-                                                   rfo_extra_sweeps)
-
     for d, want in ((28, 13), (54, 14), (56, 14), (72, 15), (78, 15),
                     (104, 15)):
         assert port.k1_sweeps(d, torch.float64) == want
-        assert want == jacobi_sweeps_for(d) + rfo_extra_sweeps(torch.float64)
+        assert want == port.jacobi_sweeps_for(d) + port.rfo_extra_sweeps(
+            torch.float64)

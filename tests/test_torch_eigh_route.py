@@ -18,8 +18,7 @@ from multioptpy_tpu_torch.geometry import (project_gradient_tr_rot,
                                            tr_rot_projector)
 from multioptpy_tpu_torch.io.fixtures import alkane_chain, diels_alder_reactant
 from multioptpy_tpu_torch.ops import eigh64, tridiag_cuda
-from multioptpy_tpu_torch.ops.jacobi_cuda import (b_min, jacobi_eigh_plain,
-                                                   max_dim)
+from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_plain, max_dim
 from multioptpy_tpu_torch.steppers.rfo import rs_rfo_step
 from multioptpy_tpu_torch.units import ANGSTROM2BOHR
 
@@ -154,7 +153,7 @@ def test_the_c32h66_start_goes_to_k3():
 
 
 def b_min3(d):
-    return b_min(d, torch.float64, tridiag_cuda.K3_MIN_BATCH)
+    return eigh64.b_min(d, torch.float64, eigh64.K3_MIN_BATCH)
 
 
 def test_k3_only_past_k1s_gate_from_b_min3():
@@ -174,10 +173,107 @@ def test_k3_only_past_k1s_gate_from_b_min3():
                 assert route in ("k3", "cusolver")
             assert eigh64.eigh_route("cuda", torch.float32, d, b,
                                      False) != "k3"
-    table = tridiag_cuda.K3_MIN_BATCH[torch.float64]
+    table = eigh64.K3_MIN_BATCH[torch.float64]
     assert min(table) > top and max(table) <= tridiag_cuda.max_dim()
     assert b_min3(min(table) - 1) is None
     assert b_min3(max(table) + 1) is None
     dims = sorted(table)
     for lo, hi in zip(dims, dims[1:]):
         assert b_min3((lo + hi) // 2) == max(table[lo], table[hi])
+
+
+# --------------------------------------------------------------- the plan
+#
+# `eigh64.plan` against the routes of the five dispatchers it replaced
+# (`steppers.rfo._eigh`, `calculators.sqm._sqm_eigh`,
+# `jacobi_cuda.jacobi_eigh_auto`, `eigh64._seed_eigh_f32`, `eigh_fast`),
+# written down from them as literals.
+
+DIMS = (20, 24, 28, 32, 54, 72, 78, 104, 120, 122, 168, 170, 200, 294, 392)
+BATCHES = (1, 2, 3, 6, 16, 588)
+F64, F32 = torch.float64, torch.float32
+# jacobi_sweeps_for(D): 5 + ceil(log2(max(D, 16) / 16))
+SWEEPS = {20: 6, 24: 6, 28: 6, 32: 6, 54: 7, 72: 8, 78: 8, 104: 8, 120: 8,
+          122: 8, 168: 9, 170: 9, 200: 9, 294: 10, 392: 10}
+# the step's extra K1 sweeps (the band's is 1), and K1's even-D gate
+STEP_EXTRA = {F64: 7, F32: 1}
+K1_GATE = {F64: 120, F32: 168}
+# eigh_fast on the card, input not grad-tracked, at the BATCHES: K1 (k),
+# K3 (3) or cuSOLVER (c)
+FAST = {
+    F64: {20: "kkkkkk", 24: "kkkkkk", 28: "kkkkkk", 32: "ckkkkk",
+          54: "ckkkkk", 72: "ckkkkk", 78: "ckkkkk", 104: "cckkkk",
+          120: "ccckkk", 122: "ccc333", 168: "cccc33", 170: "cccc33",
+          200: "cccc33", 294: "cccc33", 392: "cccc33"},
+    F32: {20: "cccccc", 24: "kkkkkk", 28: "kkkkkk", 32: "kkkkkk",
+          **{d: "cccccc" for d in (54, 72, 78, 104, 120, 122, 168, 170, 200,
+                                   294, 392)}},
+}
+# knob value: (step on CUDA, step on the CPU, band on CUDA, band on the CPU)
+RULES = {
+    "pallas": ("gate", "jacobi", "gate", "jacobi"),
+    "kernel": ("gate", "gate", "gate", "gate"),
+    "jacobi": ("jacobi", "jacobi", "fast", "fast"),
+    "auto": ("fast", "fast", "gate", "fast"),
+    "seeded": ("fast", "fast", "seeded", "seeded"),
+    "xla": ("fast", "fast", "fast", "fast"),
+    "anything": ("fast", "fast", "fast", "fast"),
+}
+
+
+def _callable_impl(a, sweeps):
+    raise AssertionError("the planner calls nothing")
+
+
+def _fast(device, dtype, d, b, grad):
+    if device == "cpu":
+        return "cpu", None
+    if grad:
+        return "cusolver", None
+    route = {"k": "k1", "3": "k3", "c": "cusolver"}[
+        FAST[dtype][d][BATCHES.index(b)]]
+    return route, (SWEEPS[d] + STEP_EXTRA[dtype] if route == "k1" else None)
+
+
+def _parent(impl, caller, device, dtype, d, b, grad):
+    sweeps = SWEEPS[d] + (STEP_EXTRA[dtype] if caller == "step" else 1)
+    if callable(impl):
+        return "callable", sweeps
+    rule = RULES[impl][(caller == "band") * 2 + (device == "cpu")]
+    if rule == "jacobi":
+        return "jacobi", SWEEPS[d]
+    if rule == "seeded":
+        return "seeded", None
+    if rule == "gate" and d <= K1_GATE[dtype]:
+        return "k1", sweeps
+    return _fast(device, dtype, d, b, grad)
+
+
+@pytest.mark.parametrize("impl", [*RULES, _callable_impl],
+                         ids=[*RULES, "callable"])
+@pytest.mark.parametrize("caller", ["step", "band"])
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("dtype", [F64, F32], ids=["f64", "f32"])
+def test_plan_matches_the_parent(impl, caller, device, dtype):
+    for d in DIMS:
+        for b in BATCHES:
+            for grad in (False, True):
+                want = _parent(impl, caller, device, dtype, d, b, grad)
+                got = eigh64.plan(impl, caller, device, dtype, d, b, grad)
+                assert got == want, (d, b, grad)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_seeded_eighs_seed_matches_the_parent(device):
+    """The f32 seed: K1 at 8 sweeps at or below the f32 gate on the card,
+    else eigh_fast, whatever the knob."""
+    for d in DIMS:
+        for b in BATCHES:
+            for grad in (False, True):
+                if device == "cuda" and d <= K1_GATE[F32]:
+                    want = ("k1", 8)
+                else:
+                    want = _fast(device, F32, d, b, grad)
+                for impl in ("seeded", "xla"):
+                    got = eigh64.plan(impl, "seed", device, F32, d, b, grad)
+                    assert got == want, (d, b, grad)

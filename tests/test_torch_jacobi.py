@@ -10,13 +10,12 @@ from multioptpy_tpu.ops.jacobi import _round_robin_schedule as jax_schedule
 from multioptpy_tpu.ops.jacobi import jacobi_eigh as jax_jacobi_eigh
 from multioptpy_tpu.ops.jacobi_pallas import jacobi_eigh_pallas
 from multioptpy_tpu_torch.ops import jacobi_cuda
+from multioptpy_tpu_torch.ops.eigh64 import eigh, jacobi_sweeps_for
 from multioptpy_tpu_torch.ops.jacobi import _round_robin_schedule, jacobi_eigh
 from multioptpy_tpu_torch.ops.jacobi import pad_to_even, sort_and_trim
 from multioptpy_tpu_torch.ops.jacobi_cuda import (
-    SMEM_LIMIT, circle_schedule, jacobi_eigh_auto,
-    jacobi_eigh_cuda, jacobi_eigh_plain, launch_plan, max_dim, pair_indices,
-    symmetrize_pairs, thread_blocks)
-from multioptpy_tpu_torch.steppers.rfo import jacobi_sweeps_for
+    SMEM_LIMIT, circle_schedule, jacobi_eigh_cuda, jacobi_eigh_plain,
+    launch_plan, max_dim, pair_indices, symmetrize_pairs, thread_blocks)
 
 torch.set_num_threads(1)
 
@@ -99,9 +98,10 @@ def test_auto_gate_is_the_shared_memory_limit():
     rng = np.random.default_rng(4)
     a = torch.as_tensor(_sym(rng, 1, 122, np.float64))
     before = jacobi_eigh_cuda.launches
-    w, _ = jacobi_eigh_auto(a, sweeps=1)     # one sweep would not converge
+    w, _ = eigh(a, "kernel", "band")
     np.testing.assert_allclose(w.numpy(), np.linalg.eigvalsh(a.numpy()),
                                atol=1e-10)
+    assert torch.equal(w, torch.linalg.eigh(a)[0])
     assert jacobi_eigh_cuda.launches == before
 
 

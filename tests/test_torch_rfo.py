@@ -100,15 +100,15 @@ def test_kernel_route_is_the_plain_version_on_cpu():
     """eigh_impl="kernel" runs the kernel's algorithm at the card's sweep
     count (sweeps + 1) on every device; on the CPU that is the plain
     version, and nothing is launched."""
+    from multioptpy_tpu_torch.ops.eigh64 import eigh
     from multioptpy_tpu_torch.ops.jacobi_cuda import (jacobi_eigh_cuda,
                                                       jacobi_eigh_plain)
-    from multioptpy_tpu_torch.steppers.rfo import _eigh
 
     rng = np.random.default_rng(8)
     for d, sweeps in ((10, 6), (54, 8), (72, 9)):
         h = torch.as_tensor(_hessians(rng, 2, d, "indefinite"))
         before = jacobi_eigh_cuda.launches
-        w, v = _eigh(h, "kernel")
+        w, v = eigh(h, "kernel", "band")
         w_p, v_p = jacobi_eigh_plain(h, sweeps)
         assert jacobi_eigh_cuda.launches == before
         assert torch.equal(w, w_p) and torch.equal(v, v_p)
@@ -120,9 +120,9 @@ def test_callable_eigh_impl_gets_the_kernel_routes_arguments():
     band, and its answer is the one used: answered by the kernel's
     algorithm, the step and the energy equal the "kernel" route's."""
     from multioptpy_tpu_torch.calculators.sqm import SQM2
+    from multioptpy_tpu_torch.ops.eigh64 import (jacobi_sweeps_for,
+                                                 rfo_extra_sweeps)
     from multioptpy_tpu_torch.ops.jacobi_cuda import jacobi_eigh_plain
-    from multioptpy_tpu_torch.steppers.rfo import (jacobi_sweeps_for,
-                                                   rfo_extra_sweeps)
 
     seen = []
 
@@ -164,8 +164,8 @@ def test_reference_cpu_sweeps_leave_the_rfo_hessian_unconverged():
     from multioptpy_tpu_torch.calculators.sqm import SQM2
     from multioptpy_tpu_torch.geometry import tr_rot_projector
     from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu_torch.ops.eigh64 import eigh
     from multioptpy_tpu_torch.ops.jacobi import jacobi_eigh
-    from multioptpy_tpu_torch.steppers.rfo import _eigh
 
     c, z = diels_alder_reactant()
     x = torch.as_tensor(c)[None]
@@ -181,7 +181,7 @@ def test_reference_cpu_sweeps_leave_the_rfo_hessian_unconverged():
             a1, dim1=-2, dim2=-1))).abs().max().item()
 
     assert off_diagonal(jacobi_eigh(h_eff, 7)[1]) > 1e-5
-    w, v = _eigh(h_eff, "kernel")
+    w, v = eigh(h_eff, "kernel", "band")
     assert off_diagonal(v) < 1e-6
     np.testing.assert_allclose(w.numpy(), torch.linalg.eigvalsh(h_eff).numpy(),
                                rtol=0, atol=1e-9)
@@ -200,6 +200,7 @@ def test_f64_rfo_sweeps_converge_the_model_hessian_step():
                                                tr_rot_projector)
     from multioptpy_tpu_torch.hessian.model import make_model_hessian_fn
     from multioptpy_tpu_torch.io.fixtures import diels_alder_reactant
+    from multioptpy_tpu_torch.ops import eigh64
     from multioptpy_tpu_torch.steppers import rfo
 
     c, z = diels_alder_reactant()
@@ -219,20 +220,20 @@ def test_f64_rfo_sweeps_converge_the_model_hessian_step():
         return (a1 - torch.diag_embed(torch.diagonal(
             a1, dim1=-2, dim2=-1))).abs().max().item()
 
-    assert off_diagonal(rfo._eigh(h_eff, "kernel")[1]) > 1e-5
-    extra = rfo.rfo_extra_sweeps(torch.float64)
-    assert off_diagonal(rfo._eigh(h_eff, "kernel", extra)[1]) < 1e-10
+    assert off_diagonal(eigh64.eigh(h_eff, "kernel", "band")[1]) > 1e-5
+    assert eigh64.rfo_extra_sweeps(torch.float64) > 1
+    assert off_diagonal(eigh64.eigh(h_eff, "kernel", "step")[1]) < 1e-10
     exact, _ = rfo.rs_rfo_step(g_flat, h_eff, trust, eigh_impl="xla")
     got, _ = rfo.rs_rfo_step(g_flat, h_eff, trust, eigh_impl="kernel")
     np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=0,
                                atol=1e-10)
-    w, v = rfo._eigh(h_eff, "kernel")
-    orig = rfo._eigh
+    w, v = eigh64.eigh(h_eff, "kernel", "band")
+    orig = rfo.eigh
     try:
-        rfo._eigh = lambda h, impl, extra_sweeps=1: (w, v)
+        rfo.eigh = lambda h, impl, caller: (w, v)
         short, _ = rfo.rs_rfo_step(g_flat, h_eff, trust, eigh_impl="kernel")
     finally:
-        rfo._eigh = orig
+        rfo.eigh = orig
     assert (short - exact).abs().max().item() > 1e-5
 
 

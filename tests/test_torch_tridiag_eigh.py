@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from multioptpy_tpu_torch.calculators.sqm import _FERMI_KT, _fermi_occupations
+from multioptpy_tpu_torch.ops import eigh64
 from multioptpy_tpu_torch.ops import tridiag_cuda as tc
 
 torch.set_num_threads(1)
@@ -218,7 +219,7 @@ def test_sqm2_through_k3_matches_cusolver_on_card(monkeypatch):
     calc = SQM2(device="cuda")
     out = {}
     for name, need in (("k3", 1), ("cusolver", None)):
-        monkeypatch.setattr(tc, "K3_MIN_BATCH",
+        monkeypatch.setattr(eigh64, "K3_MIN_BATCH",
                             {torch.float64: {392: need}} if need else {})
         rec = StageTimer()
         with recording(rec):
